@@ -1,4 +1,4 @@
-.PHONY: test test-fast smoke test-upstream bench timings timings-tpu \
+.PHONY: test test-fast smoke test-upstream bench chip-smoke timings \
 	examples tutorials docs
 
 test:
@@ -34,14 +34,15 @@ test-fast: smoke
 test-upstream:
 	python tools/run_reference_tests.py
 
+# on a machine with a GPU (one card; the four-card paths: --four-cards)
 bench:
 	python bench.py
 
+chip-smoke:
+	python chip_smoke.py
+
 timings:
 	python examples/timings.py
-
-timings-tpu:
-	python examples/timings.py --tpu
 
 tutorials:
 	python docs/run_tutorials.py

@@ -2,7 +2,7 @@
 Bayesian parameter inference for the FitzHugh-Nagumo model: compare the
 `basic` plug-in likelihood, the `fenrir` gradient-friendly likelihood, and
 pseudo-marginal MCMC with vmapped chains (mirrors
-docs/examples/parameter.md of the reference, TPU-first: all likelihoods are
+docs/examples/parameter.md of the reference: all likelihoods are
 jitted and chains are vmapped/shardable).
 
 Run: python examples/parameter.py

@@ -1,10 +1,11 @@
 r"""
-rodeo-tpu: a TPU-native probabilistic ODE solver and inference framework.
+rodeo-tpu: a probabilistic ODE solver and inference framework in JAX.
 
-Re-architecture of the capabilities of ``mlysy/rodeo`` (reference mounted at
-``/root/reference``) for TPU execution: batch-polymorphic Kalman kernels,
+Re-architecture of the capabilities of ``mlysy/rodeo`` for accelerator
+execution: batch-polymorphic Kalman kernels,
 optional parallel-in-time associative-scan filtering/smoothing, SVD-free
-sampling, fused Pallas kernels for the hot scans, and device-mesh sharding
+sampling, fused lane-batched step functions (with GPU kernels) for the hot
+scans, and device-mesh sharding
 for vmapped MCMC chains and parameter sweeps.
 
 Public API surface (matching the reference's re-exports,
@@ -14,8 +15,9 @@ Public API surface (matching the reference's re-exports,
 - :mod:`rodeo_tpu.interrogate`, :mod:`rodeo_tpu.prior`,
   :mod:`rodeo_tpu.inference`, :mod:`rodeo_tpu.kalmantv`,
   :mod:`rodeo_tpu.utils`
-- TPU-native extensions under :mod:`rodeo_tpu.ops` (parallel-in-time,
-  Pallas kernels, fast sampling) and :mod:`rodeo_tpu.parallel`
+- extensions under :mod:`rodeo_tpu.ops` (parallel-in-time,
+  fused step functions and GPU kernels, fast sampling) and
+  :mod:`rodeo_tpu.parallel`
   (mesh/sharding helpers).
 """
 

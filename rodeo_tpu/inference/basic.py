@@ -24,7 +24,7 @@ Functional parity target: ``/root/reference/src/rodeo/inference/basic.py``.
    Lorenz63 bench config (4k grid, t in [0, 20]) ``basic`` lands ~12%
    relative off its f64 value — and the SAME pipeline run in f32 on CPU
    lands ~11.7% off (the ``basic_f32cpu_control_rel_err`` bench row),
-   i.e. this is the f32 floor of plug-in-on-chaotic, not a TPU defect.
+   i.e. this is the f32 floor of plug-in-on-chaotic, not a device defect.
    The error is inherent to the method: no solver change can help,
    because the information that distinguishes f32 from f64 trajectories
    is below f32 resolution.  Two mitigations:
@@ -72,7 +72,7 @@ def basic(key, ode_fun, ode_weight, ode_init,
         kalman_type (str): ``"standard"`` or ``"square-root"``.
         temporal (str): ``"sequential"`` or ``"parallel"`` — the latter
             runs the underlying smoother parallel-in-time
-            (:mod:`rodeo_tpu.ops.ptime`); TPU-only addition, values
+            (:mod:`rodeo_tpu.ops.ptime`); an addition to the reference, values
             identical.  For lane-batched throughput use
             :func:`rodeo_tpu.ops.pallas_kalman.basic_fused_batch`.
         params: Optional model parameters.

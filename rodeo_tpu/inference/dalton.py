@@ -994,7 +994,7 @@ def _logx_yhat(mean_state_filt, var_state_filt,
     :math:`\log p(X_{0:N} = \mu_{0:N|N} \mid \hat Y_{0:M}, Z_{1:N})`.
     Parity: ``dalton.py:701-784``.
 
-    TPU fast path (standard form): the backward-kernel parameters
+    Fast path (standard form): the backward-kernel parameters
     ``(A, b, C)`` hoist out of the loop as one batched ``smooth_cond``;
     the scan keeps only the mean recursion
     :math:`\mu_n = A_n \mu_{n+1} + b_n` (the variance recursion is not

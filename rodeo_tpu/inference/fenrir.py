@@ -257,7 +257,7 @@ def _backward_dense(mean_state_filt, var_state_filt,
                     kalman_funs, temporal="sequential"):
     r"""
     Masked-dense backward pass (standard form): same return contract as
-    :func:`_backward`, TPU-first restructuring:
+    :func:`_backward`, restructured for accelerators:
 
     1. the backward-chain parameters :math:`(A_n, b_n, C_n)` are ONE
        batched ``smooth_cond`` over the whole time axis (hoisted out of

@@ -5,7 +5,7 @@ Same state-space model and eight-function interface as
 :mod:`rodeo_tpu.kalmantv.standard`, but all variance arguments and returns are
 square-root factors :math:`\Gamma` with :math:`\Sigma = \Gamma \Gamma'`,
 propagated via QR decompositions for numerical stability (important under
-float32 on TPU, where the standard form can lose positive-definiteness).
+float32, where the standard form can lose positive-definiteness).
 
 Functional parity target:
 ``/root/reference/src/rodeo/kalmantv/square_root.py``.
@@ -44,7 +44,7 @@ def _tri_solve(chol, b, lower=True):
     Under :func:`rodeo_tpu.ops.linalg.fast_linalg` (the preconditioned
     wrappers) tiny systems use unrolled closed-form substitution — the
     LAPACK-style batched triangular solve is an iterative routine that
-    dominates the sqrt filter's step cost on TPU."""
+    dominates the sqrt filter's step cost."""
     bshape = jnp.broadcast_shapes(chol.shape[:-2], b.shape[:-2])
     chol = jnp.broadcast_to(chol, bshape + chol.shape[-2:])
     b = jnp.broadcast_to(b, bshape + b.shape[-2:])

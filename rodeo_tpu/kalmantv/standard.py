@@ -17,15 +17,15 @@ Functional parity target: ``/root/reference/src/rodeo/kalmantv/standard.py``
 ``predict``, ``update``, ``filter``, ``smooth_mv``, ``smooth_sim``,
 ``smooth``, ``forecast``, ``smooth_cond``).
 
-TPU-first design
-----------------
+Design
+------
 Unlike the reference (which operates on a single block and is ``jax.vmap``-ed
 by every caller), every kernel here is **batch polymorphic**: all matrix /
 vector arguments accept arbitrary leading batch dimensions (block, chain,
 time-tile, ...).  The math is expressed with broadcasting ``@`` / ``einsum``
 and batched ``jnp.linalg.solve``, so a single call covers the whole stacked
-``(n_block, q, q)`` state in one fused XLA computation — larger ops for the
-MXU, no vmap plumbing.  ``jax.vmap`` of these kernels still works and returns
+``(n_block, q, q)`` state in one fused XLA computation — larger ops, no
+vmap plumbing.  ``jax.vmap`` of these kernels still works and returns
 identical results, so reference-style call sites remain valid.
 """
 import jax
@@ -122,7 +122,7 @@ def update(mean_state_pred,
     if joseph:
         # Joseph-stabilized covariance update: PSD-preserving under
         # float32 cancellation (essential for exact/zero-noise
-        # pseudo-measurements on the TPU fast path)
+        # pseudo-measurements on the fast path)
         eye = jnp.broadcast_to(
             jnp.eye(var_state_pred.shape[-1], dtype=var_state_pred.dtype),
             var_state_pred.shape)

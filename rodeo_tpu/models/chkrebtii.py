@@ -27,7 +27,7 @@ def chkrebtii_fun(X_t, t, **params):
 
 
 def chkrebtii_flat(x_cols, th, t):
-    """Mosaic-safe Chkrebtii right-hand side (see
+    """Chkrebtii right-hand side (see
     :func:`rodeo_tpu.models.lorenz.lorenz_flat` for the contract)."""
     del th
     x = x_cols[0]                                  # (1, B) position column

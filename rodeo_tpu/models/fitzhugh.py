@@ -34,27 +34,25 @@ def fitzhugh_fun(X_t, t, theta):
 
 
 def fitzhugh_flat(x_cols, th, t):
-    """Mosaic-safe FitzHugh-Nagumo right-hand side (see
+    """FitzHugh-Nagumo right-hand side (see
     :func:`rodeo_tpu.models.lorenz.lorenz_flat` for the contract)."""
     del t
     x0 = x_cols[0]
-    F = x0.shape[0] // N_VARS
-    V, R = x0[0:F, :], x0[F:2 * F, :]
-    a, b, c = th[0:F, :], th[F:2 * F, :], th[2 * F:3 * F, :]
+    V, R = x0[0:1], x0[1:2]
+    a, b, c = th[0:1], th[1:2], th[2:3]
     f0 = c * (V - V * V * V / 3.0 + R)
     f1 = -(V - a + b * R) / c
     return jnp.concatenate([f0, f1], axis=0)
 
 
 def fitzhugh_jac_flat(x_cols, th, t):
-    """Mosaic-safe block-diagonal Jacobian columns of
+    """Block-diagonal Jacobian columns of
     :func:`fitzhugh_flat`: ``d f_V / dV = c (1 - V^2)``,
     ``d f_R / dR = -b / c``."""
     del t
     x0 = x_cols[0]
-    F = x0.shape[0] // N_VARS
-    V = x0[0:F, :]
-    b, c = th[F:2 * F, :], th[2 * F:3 * F, :]
+    V = x0[0:1]
+    b, c = th[1:2], th[2:3]
     dV = c * (1.0 - V * V)
     dR = -b / c
     col0 = jnp.concatenate([dV, dR], axis=0)

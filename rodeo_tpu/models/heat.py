@@ -13,7 +13,7 @@ interior points, is the linear ODE system
 
 which exercises the solver regime the reference's benchmark suite never
 touches: a *dense coupled* state (one block of ``d * n_deriv`` entries,
-e.g. 384 at ``d=128``) where every filter step is MXU-sized matmuls and
+e.g. 384 at ``d=128``) where every filter step is large matmuls and
 an :math:`O(d)`-dimensional innovation solve, instead of Table-3's
 :math:`d \le 6` toy systems (reference models: ``examples/timings.py``).
 
@@ -115,7 +115,7 @@ def magi_setup(d=128, n_deriv=3, n_active=2, n_steps=25, t_min=0.0,
     Unlike fenrir/dalton, MAGI needs no dense/stationary machinery in the
     large-state regime: its filter has no interrogation step, so the
     cross-variable coupling enters only through ``ode_expand`` (here one
-    path-wide MXU matmul with the Laplacian) and the Kalman recursion
+    path-wide matmul with the Laplacian) and the Kalman recursion
     stays block-diagonal — ``d`` independent ``(n_deriv, n_deriv)``
     filters, exactly the regime the blocked kernels already handle
     (reference semantics: ``/root/reference/src/rodeo/inference/magi.py``,
@@ -141,8 +141,8 @@ def magi_setup(d=128, n_deriv=3, n_active=2, n_steps=25, t_min=0.0,
     scale is :math:`\\sigma\\,\\Delta t^{p-1/2}`, which must stay well above
     the float32 representation noise of the path
     (:math:`\\varepsilon\\,\\|u\\| \\approx 6\\times10^{-8}`) for the density
-    to carry information on TPU — a fine grid or diffuse-σ config silently
-    destroys the κ signal (measured in ``docs/benchmarks.md``).  MAGI's
+    to carry information in float32 — a fine grid or diffuse-σ config
+    silently destroys the κ signal.  MAGI's
     whole point is coarse grids, so this costs nothing.
     """
     if n_active != n_deriv - 1:

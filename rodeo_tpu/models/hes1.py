@@ -35,17 +35,16 @@ def hes1_fun(X_t, t, theta):
 
 
 def hes1_flat(x_cols, th, t):
-    """Mosaic-safe Hes1 right-hand side (log scale); see
+    """Hes1 right-hand side (log scale); see
     :func:`rodeo_tpu.models.lorenz.lorenz_flat` for the contract."""
     del t
     x0 = x_cols[0]
-    F = x0.shape[0] // N_VARS
-    P = jnp.exp(x0[0:F, :])
-    M = jnp.exp(x0[F:2 * F, :])
-    H = jnp.exp(x0[2 * F:3 * F, :])
-    a, b, c = th[0:F, :], th[F:2 * F, :], th[2 * F:3 * F, :]
-    d, e = th[3 * F:4 * F, :], th[4 * F:5 * F, :]
-    f, g = th[5 * F:6 * F, :], th[6 * F:7 * F, :]
+    P = jnp.exp(x0[0:1])
+    M = jnp.exp(x0[1:2])
+    H = jnp.exp(x0[2:3])
+    a, b, c = th[0:1], th[1:2], th[2:3]
+    d, e = th[3:4], th[4:5]
+    f, g = th[5:6], th[6:7]
     one_p2 = 1.0 + P * P
     dP = -a * H + b * M / P - c
     dM = -d + e / one_p2 / M

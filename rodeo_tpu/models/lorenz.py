@@ -36,20 +36,21 @@ def lorenz_fun(X_t, t, theta):
 
 
 def lorenz_flat(x_cols, th, t):
-    """Mosaic-safe Lorenz63 right-hand side for the fused Pallas kernels.
+    """Lorenz63 right-hand side for the fused solvers (the ``*_flat``
+    contract of :mod:`rodeo_tpu.ops.pallas_kalman`).
 
     ``x_cols`` is a list of ``n_deriv`` columns of shape
-    ``(n_vars * fold, n_lane)`` (column ``j`` = j-th derivative of every
-    variable; variable ``b`` occupies the ``fold`` consecutive rows
-    ``b*fold:(b+1)*fold`` — the lane-folded tile layout, ``fold=1`` being
-    the plain one-row-per-variable case).  ``th`` rows are grouped the
-    same way.  Returns ``(3 * fold, n_lane)``.
+    ``(n_vars, n_lane)`` (column ``j`` = j-th derivative of every
+    variable, one row per variable); ``th`` is ``(n_theta, n_lane)``, one
+    row per parameter.  Returns ``(n_vars, n_lane)``.  Only row slices,
+    elementwise math and row concatenation are used (the operations
+    :mod:`rodeo_tpu.ops.flat_rows` allows), so the same callable runs
+    under the scan driver and inside the GPU kernels.
     """
     del t
     x0 = x_cols[0]
-    F = x0.shape[0] // N_VARS
-    x, y, z = x0[0:F, :], x0[F:2 * F, :], x0[2 * F:3 * F, :]
-    rho, sigma, beta = th[0:F, :], th[F:2 * F, :], th[2 * F:3 * F, :]
+    x, y, z = x0[0:1], x0[1:2], x0[2:3]
+    rho, sigma, beta = th[0:1], th[1:2], th[2:3]
     f0 = -sigma * x + sigma * y
     f1 = rho * x - y - x * z
     f2 = -beta * z + x * y
@@ -57,16 +58,15 @@ def lorenz_flat(x_cols, th, t):
 
 
 def lorenz_jac_flat(x_cols, th, t):
-    """Mosaic-safe block-diagonal Jacobian columns of :func:`lorenz_flat`.
+    """Block-diagonal Jacobian columns of :func:`lorenz_flat`.
 
-    Column ``j`` is ``d f_b / d x_{b,j}`` of shape ``(3 * fold, n_lane)``
-    (same row grouping as :func:`lorenz_flat`); ``None`` marks known-zero
+    Column ``j`` is ``d f_b / d x_{b,j}`` of shape ``(3, n_lane)``
+    (same row layout as :func:`lorenz_flat`); ``None`` marks known-zero
     columns.  Only the 0th derivative enters ``f``, and the in-block
     partials are ``(-sigma, -1, -beta)``.
     """
     del x_cols, t
-    F = th.shape[0] // 3
-    sigma, beta = th[F:2 * F, :], th[2 * F:3 * F, :]
+    sigma, beta = th[1:2], th[2:3]
     one = jnp.ones_like(sigma)
     col0 = jnp.concatenate([-sigma, -one, -beta], axis=0)
     return [col0] + [None] * (N_DERIV - 1)

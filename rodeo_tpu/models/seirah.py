@@ -41,15 +41,14 @@ def seirah_fun(X_t, t, theta):
 
 
 def seirah_flat(x_cols, th, t):
-    """Mosaic-safe SEIRAH right-hand side; see
+    """SEIRAH right-hand side; see
     :func:`rodeo_tpu.models.lorenz.lorenz_flat` for the contract."""
     del t
     x0 = x_cols[0]
-    F = x0.shape[0] // N_VARS
-    S, E, I = x0[0:F, :], x0[F:2 * F, :], x0[2 * F:3 * F, :]
-    R, A, H = x0[3 * F:4 * F, :], x0[4 * F:5 * F, :], x0[5 * F:6 * F, :]
-    b, r, alpha = th[0:F, :], th[F:2 * F, :], th[2 * F:3 * F, :]
-    D_e, D_I, D_q = th[3 * F:4 * F, :], th[4 * F:5 * F, :], th[5 * F:6 * F, :]
+    S, E, I = x0[0:1], x0[1:2], x0[2:3]
+    R, A, H = x0[3:4], x0[4:5], x0[5:6]
+    b, r, alpha = th[0:1], th[1:2], th[2:3]
+    D_e, D_I, D_q = th[3:4], th[4:5], th[5:6]
     N = S + E + I + R + A + H
     inf = b * S * (I + alpha * A) / N
     dS = -inf

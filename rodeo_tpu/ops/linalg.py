@@ -3,11 +3,10 @@ Fast closed-form linear algebra for tiny matrices.
 
 The solver state is block-diagonal with blocks of size :math:`q \le 4` and
 measurement dimension typically 1, yet every filter/smoother step calls
-``jnp.linalg.solve`` — on TPU that lowers to a general batched LU routine
-whose fixed cost dwarfs the actual arithmetic and dominates the sequential
-scan.  For ``n in {1, 2, 3}`` the solve has an exact closed form (division /
-adjugate), which lowers to a handful of VPU ops and fuses into the
-surrounding computation.
+``jnp.linalg.solve`` — a general batched LU routine whose fixed cost
+dwarfs the actual arithmetic of a tiny matrix.  For ``n in {1, 2, 3}`` the
+solve has an exact closed form (division / adjugate), which lowers to a
+handful of elementwise ops and fuses into the surrounding computation.
 
 The closed forms lose ``cond(A) * eps`` accuracy, so they are only enabled
 inside the Taylor-preconditioned code paths (where all matrices are O(1)
@@ -31,21 +30,18 @@ def full_matmul_precision(fn):
     r"""
     Trace ``fn`` under ``jax.default_matmul_precision("highest")``.
 
-    TPU's default float32 ``dot_general`` runs bfloat16 passes (~8e-3
-    relative per product); over thousands of sequential filter steps on
-    a chaotic system that rounding is amplified catastrophically.
-    Measured on Lorenz63-4k (21 obs, Taylor precond, v5e): fenrir
-    log-density drift vs the f64 reference 68.9 -> 2.75 absolute and
-    magi 1903.7 -> 6.86 with this wrapper — i.e. down to the same
-    pipeline's f32-on-CPU control level (2.2 / 6.8), so the remaining
-    error is what float32 itself does on this problem.  The per-step
-    operands are tiny (q <= 4) and the scans dispatch-bound, so the
-    extra MXU passes are not measurable in wall-clock.
+    An accelerator's default float32 ``dot_general`` may run at reduced
+    precision (TF32 on a GPU's tensor cores keeps ~3 decimal digits);
+    over thousands of sequential filter steps on a chaotic system that
+    rounding is amplified catastrophically, far past what float32
+    itself does on the problem (the f32-on-CPU control).  The per-step
+    operands are tiny (q <= 4), so full-precision products cost nothing
+    measurable there.
 
-    Applied to every public solver/inference entry point; the fused
-    Pallas kernels make their own (elementwise / full-f32) choices
-    in-kernel and are unaffected.  No-op on CPU (f32 matmuls are exact
-    there) — reference parity in f64 is untouched.
+    Applied to every public solver/inference entry point; the fused step
+    functions use elementwise f32 arithmetic and are unaffected.  No-op
+    on CPU (f32 matmuls are exact there) — reference parity in f64 is
+    untouched.
     """
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
@@ -169,7 +165,7 @@ def mvn_logpdf_small(x, mean, cov):
     Multivariate-normal log-density via closed-form determinant + solve
     for trailing dims up to 5 — no eigendecomposition (``jnp.linalg.eigh``
     of tiny matrices is an iterative routine whose cost dwarfs the
-    arithmetic on TPU).  Scale-normalized against f32 overflow; requires
+    arithmetic).  Scale-normalized against f32 overflow; requires
     a positive-definite covariance (use
     :func:`rodeo_tpu.utils.multivariate_normal_logpdf` for singular
     covariances).
@@ -221,16 +217,15 @@ def solve_psd(a, b):
 
     * default (``fast_linalg`` off): batched LU via :func:`solve_small` —
       bit-identical to the reference's ``jnp.linalg.solve`` path
-      (``/root/reference/src/rodeo/utils.py:105-119``, which ships the
-      Cholesky variant commented out);
+      (upstream ``rodeo/utils.py:105-119``, which ships the Cholesky
+      variant commented out);
     * ``fast_linalg`` on, :math:`n \le 5`: closed-form adjugate solve
-      (:func:`solve_small`) — a handful of VPU ops;
-    * ``fast_linalg`` on, :math:`n > 5`: Cholesky + two triangular solves.
-      On TPU the general batched LU of ``jnp.linalg.solve`` is the single
-      most expensive primitive in a large-state filter step (measured on
-      v5e at :math:`n = 384`: LU ~279 us vs ~25 us for the step's matmuls);
-      the Cholesky pair costs roughly half the LU and is *more* accurate on
-      PD inputs.  Requires genuinely PD ``a`` — ``fast_linalg`` is the
+      (:func:`solve_small`) — a handful of elementwise ops;
+    * ``fast_linalg`` on, :math:`n > 5`: Cholesky + two triangular solves,
+      roughly half the work of the general batched LU of
+      ``jnp.linalg.solve`` and *more* accurate on PD inputs (which of the
+      two is faster on a given device is not measured here).  Requires
+      genuinely PD ``a`` — ``fast_linalg`` is the
       caller's assertion that its matrices are well-conditioned (the
       Taylor-preconditioned paths guarantee this).
 
@@ -299,8 +294,8 @@ def sym_eigh_small(a):
     r"""
     Closed-form symmetric eigendecomposition for trailing dims up to 3
     (batched, elementwise ops only — ``jnp.linalg.eigh`` of millions of
-    tiny matrices lowers to an iterative routine that dominates whole
-    pipelines on TPU).
+    tiny matrices lowers to an iterative routine whose cost dwarfs the
+    arithmetic).
 
     Eigenvalues by the trigonometric solution of the characteristic
     cubic; eigenvectors by the Cayley–Hamilton construction
@@ -361,13 +356,11 @@ def sym_eigh_small(a):
     def eigvec(wi, wj, wk):
         # v_i spans the column space of (A - wj I)(A - wk I)
         # (Cayley-Hamilton, rank one in exact arithmetic).  Select a
-        # representative GATHER-FREE (argmax/take_along_axis lower to TPU
-        # gathers that dominated whole pipelines): the image of almost
-        # any probe vector lies along v_i; use two fixed non-parallel
-        # probes and keep the larger image elementwise.  Broadcast-sum
-        # matvecs, NOT `@`: millions of batched 3x3 dot_generals lower
-        # MXU-padded and measured as 73 of the 101 ms daltonng fused
-        # pass (the logpdf stage's eigenvector branch) — computing
+        # representative GATHER-FREE (no argmax/take_along_axis): the
+        # image of almost any probe vector lies along v_i; use two fixed
+        # non-parallel probes and keep the larger image elementwise.
+        # Broadcast-sum matvecs, NOT `@`: millions of batched 3x3
+        # dot_generals lower to padded contractions — computing
         # c = B1 (B2 u) elementwise removes the matmul entirely.
         B1 = A - wj[..., None, None] * eye
         B2 = A - wk[..., None, None] * eye
@@ -494,9 +487,9 @@ def matmul_small(a, b):
     r"""
     Batched matrix product for tiny trailing dims via broadcast-multiply
     and sum — under :func:`fast_linalg` with both trailing dims <= 8.
-    Tiny batched ``@`` lowers to padded ``dot_general`` on TPU (and at
-    default precision to bfloat16 passes); the broadcast-sum form stays
-    elementwise on the VPU at full float32.  Falls back to ``@``.
+    Tiny batched ``@`` lowers to a padded ``dot_general`` (and at default
+    precision may run at reduced precision); the broadcast-sum form stays
+    elementwise at full float32.  Falls back to ``@``.
     """
     if (_FAST.get() and a.shape[-1] <= 8 and a.shape[-2] <= 8
             and b.shape[-1] <= 8):

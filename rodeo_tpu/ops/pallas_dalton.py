@@ -1,11 +1,12 @@
 r"""
-Fused Pallas DALTON likelihood (lane-batched).
+Fused DALTON likelihood (lane-batched).
 
 DALTON (``rodeo_tpu/inference/dalton.py``, reference ``dalton.py:39-235``)
 is the difference of two forward-filter log-densities:
-``log p(Z, Y) - log p(Z)``.  Both filters fuse into single Pallas kernels:
+``log p(Z, Y) - log p(Z)``.  Both filters are one pure step function run
+over time by :func:`rodeo_tpu.ops.scan.scan_steps`:
 
-* the per-step ODE forecast log-density falls out of quantities the fused
+* the per-step ODE forecast log-density falls out of quantities the
   filter already computes (the innovation ``z`` and its variance ``S``);
 * the observation rows are folded in by *sequential measurement
   processing* — a masked scalar observation update after the ODE update,
@@ -13,157 +14,35 @@ is the difference of two forward-filter log-densities:
   ``[W_meas; D]`` joint update because the ODE and observation noises are
   independent (block-diagonal joint ``V``), and replaces the per-step
   ``lax.cond`` with dense masked math;
-* only the accumulated log-density leaves the kernel — no per-step state
-  stores at all, so the DALTON kernels are the cheapest per step.
+* only the accumulated log-density leaves the loop — no per-step state
+  is stored at all.
 
 Supported configuration (XLA path otherwise): ``n_bmeas == n_bobs == 1``,
 standard form, EK1/EK0 interrogations, observations on grid points,
 block-constant transition (IBM prior).
 """
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from rodeo_tpu.ops.flat_rows import flat_call
 from rodeo_tpu.ops.precond import taylor_scale, scale_prior
 from rodeo_tpu.ops.pallas_kalman import (
-    _tri_idx, _pack_tri, _pick_chunk, _pick_chunk_batch, _sym_quadform,
-    _matvec, _acc, _interpret_mode, _static_scaled_qconst, p_cols_at,
-    _group_sum_rows, _fold_lanes, _unfold_lanes, _lane_fold_factor)
+    _tri_idx, _pack_tri, _sym_quadform, _matvec, _acc,
+    _static_scaled_qconst, p_cols_at, resolve_kalman_type,
+    normalize_prior_pars, normalize_meas_var)
+from rodeo_tpu.ops.scan import scan_steps
 
 __all__ = ["dalton_fused_batch", "dalton_fused_batch_grad"]
 
 _LOG2PI = 1.8378770664093453
 
 
-def _dalton_filter_kernel(ode_flat, jac_flat, with_obs, chunk, q, n_block,
-                          n_tri, n_lane, q_const, fold,
-                          r_ref, w_ref, x0_ref, th_ref, tgrid_ref, tv_ref,
-                          d_ref, y_ref, om_ref, mask_ref, ld0_ref,
-                          ld_ref,
-                          m_scr, p_scr, ld_scr):
-    """Forward filter accumulating the forecast log-density; with
-    ``with_obs`` a masked scalar observation update (and its log-density)
-    follows each ODE update.  ``n_block``/``n_lane`` are the (possibly
-    lane-folded) tile dims; the log-density row is ``(fold, n_lane)``."""
-    pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    Qm = q_const
-    R_cols = [r_ref[:, k:k + 1] for k in range(n_tri)]
-    W_cols = [w_ref[:, j:j + 1] for j in range(q)]
-    tv_cols = [tv_ref[:, j:j + 1] for j in range(q)]
-
-    @pl.when(gi == 0)
-    def _init():
-        for j in range(q):
-            m_scr[j] = x0_ref[j]
-        for k in range(n_tri):
-            p_scr[k] = jnp.zeros((n_block, n_lane), jnp.float32)
-        ld_scr[:] = ld0_ref[:]
-
-    def body(r, carry):
-        m_cols = list(carry[:q])
-        p_cols = list(carry[q:q + n_tri])
-        ld = carry[q + n_tri]
-        # predict + interrogate + ODE update (as in the fused filter)
-        mp_cols = _matvec(q, Qm, m_cols)
-        pp_cols = _sym_quadform(q, Qm, p_cols, where)
-        pp_cols = [pp_cols[k] + R_cols[k] for k in range(n_tri)]
-        x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
-        t_n = tgrid_ref[gi * chunk + r, 0]
-        f0 = ode_flat(x_cols, th_ref, t_n)
-        jd_cols = jac_flat(x_cols, th_ref, t_n) if jac_flat is not None \
-            else [None] * q
-        H_cols = []
-        for j in range(q):
-            if jd_cols[j] is None:
-                H_cols.append(W_cols[j])
-            else:
-                H_cols.append(W_cols[j] - jd_cols[j] * tv_cols[j])
-        hm = None
-        for j in range(q):
-            hm = _acc(hm, H_cols[j] * mp_cols[j])
-        mm = -f0
-        for j in range(q):
-            if jd_cols[j] is not None:
-                mm = mm + jd_cols[j] * x_cols[j]
-        z = -(hm + mm)
-        PH_cols = []
-        for i in range(q):
-            acc = None
-            for j in range(q):
-                acc = _acc(acc, p_cols_at(pp_cols, where, i, j) * H_cols[j])
-            PH_cols.append(acc)
-        S = None
-        for i in range(q):
-            S = _acc(S, H_cols[i] * PH_cols[i])
-        if jac_flat is None:
-            S = S + S
-        inv_S = 1.0 / S
-        # ODE pseudo-observation forecast log-density
-        ld = ld - 0.5 * _group_sum_rows(
-            z * z * inv_S + jnp.log(S) + _LOG2PI, n_block // fold, fold)
-        gain = [PH_cols[i] * inv_S for i in range(q)]
-        mf_cols = [mp_cols[i] + gain[i] * z for i in range(q)]
-        IKW = [[(1.0 if i == j else 0.0) - gain[i] * H_cols[j]
-                for j in range(q)] for i in range(q)]
-        pf_cols = _sym_quadform(q, IKW, pp_cols, where)
-        if jac_flat is None:
-            V = S * 0.5
-            pf_cols = [pf_cols[k] + gain[i] * gain[j] * V
-                       for k, (i, j) in enumerate(pairs)]
-        if with_obs:
-            # masked scalar observation update (sequential processing)
-            D = [d_ref[r, j] for j in range(q)]
-            PD = []
-            for i in range(q):
-                acc = None
-                for j in range(q):
-                    term = p_cols_at(pf_cols, where, i, j) * D[j]
-                    acc = term if acc is None else acc + term
-                PD.append(acc)
-            So = om_ref[r, 0]
-            for i in range(q):
-                So = So + D[i] * PD[i]
-            zo = y_ref[r, 0]
-            for i in range(q):
-                zo = zo - D[i] * mf_cols[i]
-            mask = mask_ref[gi * chunk + r, 0]
-            inv_So = 1.0 / So
-            logp = -0.5 * _group_sum_rows(
-                zo * zo * inv_So + jnp.log(So) + _LOG2PI,
-                n_block // fold, fold)
-            ld = ld + mask * logp
-            K = [PD[i] * inv_So * mask for i in range(q)]
-            mf_cols = [mf_cols[i] + K[i] * zo for i in range(q)]
-            IKD = [[(1.0 if i == j else 0.0) - K[i] * D[j]
-                    for j in range(q)] for i in range(q)]
-            pj = _sym_quadform(q, IKD, pf_cols, where)
-            om = om_ref[r, 0]
-            pf_cols = [pj[kk] + K[i] * K[j] * om
-                       for kk, (i, j) in enumerate(pairs)]
-        return tuple(mf_cols) + tuple(pf_cols) + (ld,)
-
-    m_in = [m_scr[j] for j in range(q)]
-    p_in = [p_scr[k] for k in range(n_tri)]
-    out = jax.lax.fori_loop(
-        0, chunk, body, tuple(m_in) + tuple(p_in) + (ld_scr[:],))
-    for j in range(q):
-        m_scr[j] = out[j]
-    for k in range(n_tri):
-        p_scr[k] = out[q + k]
-    ld_scr[:] = out[q + n_tri]
-    ld_ref[:] = out[q + n_tri]
-
-
 def _dalton_step_pure(ode_flat, jac_flat, with_obs, q, where, pairs,
                       q_const, R_cols, W_cols, tv_cols, t_n,
                       D, y, om, mask):
     """Pure per-step DALTON filter update (ODE forecast log-density plus
-    the optional masked observation update) in column form — the tangent
-    twin of the `_dalton_filter_kernel` body.  The observation inputs
+    the optional masked observation update) in column form.  The
+    observation inputs
     (D, y, om, mask) are theta-independent and closed over, so tangents
     flow only through (m, p, ld, theta)."""
 
@@ -173,9 +52,9 @@ def _dalton_step_pure(ode_flat, jac_flat, with_obs, q, where, pairs,
         pp_cols = _sym_quadform(q, q_const, p_cols, where)
         pp_cols = [pp_cols[k] + R_cols[k] for k in range(len(pp_cols))]
         x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
-        f0 = ode_flat(x_cols, th, t_n)
-        jd_cols = jac_flat(x_cols, th, t_n) if jac_flat is not None \
-            else [None] * q
+        f0 = flat_call(ode_flat, x_cols, th, t_n)
+        jd_cols = flat_call(jac_flat, x_cols, th, t_n) \
+            if jac_flat is not None else [None] * q
         H_cols = []
         for j in range(q):
             if jd_cols[j] is None:
@@ -243,95 +122,11 @@ def _dalton_step_pure(ode_flat, jac_flat, with_obs, q, where, pairs,
     return step
 
 
-def _dalton_filter_kernel_tan(ode_flat, jac_flat, with_obs, n_tan, chunk,
-                              q, n_block, n_tri, n_lane, q_const,
-                              r_ref, w_ref, x0_ref, th_ref, tgrid_ref,
-                              tv_ref, d_ref, y_ref, om_ref, mask_ref,
-                              ld0_ref,
-                              ld_ref,
-                              m_scr, p_scr, ld_scr):
-    """Tangent-augmented DALTON forward filter: carries primal state plus
-    ``n_tan`` tangent copies; per step, one `jax.jvp` of the pure update
-    per theta basis direction (the same in-kernel forward-mode trick as
-    `pallas_fenrir._filter_kernel_batch_tan`)."""
-    pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    R_cols = [r_ref[:, k:k + 1] for k in range(n_tri)]
-    W_cols = [w_ref[:, j:j + 1] for j in range(q)]
-    tv_cols = [tv_ref[:, j:j + 1] for j in range(q)]
-    n_aug = 1 + n_tan
-    th_val = th_ref[:]
-    n_theta = th_val.shape[0]
-    dths = []
-    for k in range(n_tan):
-        rows = [jnp.ones_like(th_val[0:1]) if i == k
-                else jnp.zeros_like(th_val[0:1]) for i in range(n_theta)]
-        dths.append(jnp.concatenate(rows, axis=0))
-
-    @pl.when(gi == 0)
-    def _init():
-        for j in range(q):
-            m_scr[j] = x0_ref[j]
-        for d in range(n_aug * q):
-            if d >= q:
-                m_scr[d] = jnp.zeros((n_block, n_lane), jnp.float32)
-        for k in range(n_aug * n_tri):
-            p_scr[k] = jnp.zeros((n_block, n_lane), jnp.float32)
-        ld_scr[:] = ld0_ref[:]
-
-    def body(r, carry):
-        t_n = tgrid_ref[gi * chunk + r, 0]
-        if with_obs:
-            D = [d_ref[r, j] for j in range(q)]
-            y = y_ref[r, 0]
-            om = om_ref[r, 0]
-            mask = mask_ref[gi * chunk + r, 0]
-        else:
-            D = y = om = mask = None
-        step = _dalton_step_pure(ode_flat, jac_flat, with_obs, q, where,
-                                 pairs, q_const, R_cols, W_cols, tv_cols,
-                                 t_n, D, y, om, mask)
-        m_cols = tuple(carry[:q])
-        p_cols = tuple(carry[n_aug * q:n_aug * q + n_tri])
-        ld = carry[n_aug * (q + n_tri)]
-        prim = step(m_cols, p_cols, ld, th_val)
-        outs = [prim]
-        for k in range(n_tan):
-            dm = tuple(carry[(1 + k) * q:(2 + k) * q])
-            dp = tuple(carry[n_aug * q + (1 + k) * n_tri:
-                             n_aug * q + (2 + k) * n_tri])
-            dld = carry[n_aug * (q + n_tri) + 1 + k]
-            _, tan = jax.jvp(step, (m_cols, p_cols, ld, th_val),
-                             (dm, dp, dld, dths[k]))
-            outs.append(tan)
-        new_m = sum((list(o[0]) for o in outs), [])
-        new_p = sum((list(o[1]) for o in outs), [])
-        new_ld = [o[2] for o in outs]
-        return tuple(new_m) + tuple(new_p) + tuple(new_ld)
-
-    m0 = [m_scr[d] for d in range(n_aug * q)]
-    p0 = [p_scr[k] for k in range(n_aug * n_tri)]
-    l0 = [ld_scr[d:d + 1, :].reshape(1, n_lane) for d in range(n_aug)]
-    out = jax.lax.fori_loop(0, chunk, body,
-                            tuple(m0) + tuple(p0) + tuple(l0))
-    for d in range(n_aug * q):
-        m_scr[d] = out[d]
-    for k in range(n_aug * n_tri):
-        p_scr[k] = out[n_aug * q + k]
-    for d in range(n_aug):
-        ld_scr[d] = out[n_aug * (q + n_tri) + d][0]
-        ld_ref[d] = out[n_aug * (q + n_tri) + d][0]
-
-
 def _dalton_prepare(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
                     prior_pars, obs_data, obs_times, obs_weight, obs_var,
-                    caller, fold=1):
+                    caller):
     """Shared scaled-coordinate / observation-grid setup for the fused
-    DALTON entry points (primal and tangent-augmented).  With
-    ``fold > 1`` every returned per-lane array comes back in the
-    lane-FOLDED layout (:func:`rodeo_tpu.ops.pallas_kalman._fold_lanes`)
-    with per-block rows repeated ``fold`` times and the seed log-density
-    as a ``(fold, n_lane/fold)`` row."""
+    DALTON entry points (primal and tangent-augmented)."""
     n_lane = thetas.shape[0]
     n_block, n_bmeas, q = ode_weight.shape
     n_obs, _, n_bobs, _ = obs_weight.shape
@@ -372,12 +167,10 @@ def _dalton_prepare(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
         obs_var[:, :, 0, :1].astype(jnp.float32))
     mask_grid = jnp.zeros((n_steps + 1, 1), jnp.float32)
     mask_grid = mask_grid.at[obs_ind, 0].set(1.0)
-    rep_f = (lambda a, ax: jnp.repeat(a, fold, axis=ax)) if fold > 1 \
-        else (lambda a, ax: a)
-    d_k = rep_f(jnp.transpose(d_grid[1:], (0, 2, 1))[..., None], 2)
-    y_k = rep_f(jnp.transpose(y_grid[1:], (0, 2, 1))[..., None], 2)
-    om_k = rep_f(jnp.transpose(om_grid[1:], (0, 2, 1))[..., None], 2)
-    mask_k = mask_grid[1:]
+    d_k = jnp.transpose(d_grid[1:], (0, 2, 1))[..., None]
+    y_k = jnp.transpose(y_grid[1:], (0, 2, 1))[..., None]
+    om_k = jnp.transpose(om_grid[1:], (0, 2, 1))[..., None]
+    mask_k = mask_grid[1:, 0]
 
     # masked t = 0 observation term: log p(Y_0 | X_0) (batched, host-side;
     # original coordinates, so the original obs weight — not the scaled one)
@@ -385,193 +178,121 @@ def _dalton_prepare(thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
     D0 = obs_weight[0, :, 0, :].astype(jnp.float32)      # (nb, q)
     mean_y0 = jnp.einsum("nq,nqb->nb", D0, x0_orig)      # (nb, B)
     z0 = y_grid[0] - mean_y0
-    ld0 = mask_grid[0, 0] * (-0.5) * _group_sum_rows(
-        _fold_lanes(z0 * z0 / om_grid[0] + jnp.log(om_grid[0]) + _LOG2PI,
-                    fold),
-        n_block, fold)
-    return (n_lane, n_block, q, n_tri, pairs, q_const, Rs, W_s,
-            _fold_lanes(x0_lanes, fold), tgrid, t_vec,
-            _fold_lanes(theta_lanes, fold), d_k, y_k, om_k, mask_k, ld0)
+    ld0 = mask_grid[0, 0] * (-0.5) * jnp.sum(
+        z0 * z0 / om_grid[0] + jnp.log(om_grid[0]) + _LOG2PI, axis=0,
+        keepdims=True)
+    return (n_lane, n_block, q, n_tri, pairs, q_const, Rs, W_s, x0_lanes,
+            tgrid, t_vec, theta_lanes, d_k, y_k, om_k, mask_k, ld0)
+
+def _dalton_run(prep, ode_flat, jac_flat, with_obs, n_tan, ld_seed):
+    """One DALTON filter pass over time: the pure step of
+    :func:`_dalton_step_pure` on the primal state plus ``n_tan`` tangent
+    copies (one `jax.jvp` per theta basis direction).  Returns the
+    accumulated log-density rows ``(1 + n_tan, n_lane)``."""
+    (n_lane, n_block, q, n_tri, pairs, q_const, Rs, W_s, x0_lanes,
+     tgrid, t_vec, theta_lanes, d_k, y_k, om_k, mask_k, _) = prep
+    _, where = _tri_idx(q)
+    R_packed = _pack_tri(Rs, pairs).astype(jnp.float32)
+    W = W_s.astype(jnp.float32)
+    R_cols = [R_packed[:, k:k + 1] for k in range(n_tri)]
+    W_cols = [W[:, j:j + 1] for j in range(q)]
+    tv_cols = [t_vec[j] for j in range(q)]
+    th_val = theta_lanes
+    n_theta = th_val.shape[0]
+    dths = [jnp.concatenate([jnp.ones_like(th_val[0:1]) if i == k
+                             else jnp.zeros_like(th_val[0:1])
+                             for i in range(n_theta)], axis=0)
+            for k in range(n_tan)]
+
+    def step(carry, x_t):
+        m_aug, p_aug, ld_aug = carry
+        t_n, D_t, y_t, om_t, mask = x_t
+        pure = _dalton_step_pure(
+            ode_flat, jac_flat, with_obs, q, where, pairs, q_const,
+            R_cols, W_cols, tv_cols, t_n, [D_t[j] for j in range(q)],
+            y_t[0], om_t[0], mask)
+        args = (tuple(m_aug[:q]), tuple(p_aug[:n_tri]), ld_aug[0:1],
+                th_val)
+        outs = [pure(*args)]
+        for k in range(n_tan):
+            tans = (tuple(m_aug[(1 + k) * q:(2 + k) * q]),
+                    tuple(p_aug[(1 + k) * n_tri:(2 + k) * n_tri]),
+                    ld_aug[1 + k:2 + k], dths[k])
+            outs.append(jax.jvp(pure, args, tans)[1])
+        return ([c for o in outs for c in o[0]],
+                [c for o in outs for c in o[1]],
+                jnp.concatenate([o[2] for o in outs], axis=0)), ()
+
+    zero = jnp.zeros((n_block, n_lane), jnp.float32)
+    carry0 = (list(x0_lanes) + [zero] * (n_tan * q),
+              [zero] * ((1 + n_tan) * n_tri), ld_seed.astype(jnp.float32))
+    (_, _, ld), _ = scan_steps(
+        step, carry0,
+        (tgrid.astype(jnp.float32), d_k, y_k, om_k, mask_k))
+    return ld
 
 
 def dalton_fused_batch(thetas, ode_weight, ode_inits,
                        t_min, t_max, n_steps,
                        prior_pars,
                        obs_data, obs_times, obs_weight, obs_var,
-                       ode_flat, jac_flat=None, chunk=None,
-                       interpret="auto", kalman_type="standard"):
+                       ode_flat, jac_flat=None, kalman_type="standard"):
     r"""
     Lane-batched fused DALTON log-likelihood
     :math:`\log p(Y \mid Z) = \log p(Z, Y) - \log p(Z)` — ``n_lane``
-    evaluations per kernel pipeline.
+    evaluations per pipeline.
 
     Args and return as :func:`rodeo_tpu.ops.pallas_fenrir.fenrir_fused_batch`
     (``kalman_type``: the value is form-independent; both forms ride the
-    same Joseph-form kernels, see
+    same Joseph-form filter, see
     :func:`rodeo_tpu.ops.pallas_kalman.resolve_kalman_type`).
     """
-    from rodeo_tpu.ops.pallas_kalman import (
-        resolve_kalman_type, normalize_prior_pars, normalize_meas_var)
     kalman_type = resolve_kalman_type(kalman_type)
     prior_pars = normalize_prior_pars(kalman_type, prior_pars)
     obs_var = normalize_meas_var(kalman_type, obs_var)
-    F = _lane_fold_factor(ode_weight.shape[0], thetas.shape[0])
     prep = _dalton_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
-        obs_data, obs_times, obs_weight, obs_var, "dalton_fused_batch",
-        fold=F)
-    (n_lane, n_block, q, n_tri, pairs, q_const, Rs, W_s, x0_lanes,
-     tgrid, t_vec, theta_lanes, d_k, y_k, om_k, mask_k, ld0) = prep
-    nbf, nlf = n_block * F, n_lane // F
-
-    if chunk is None:
-        # streams: D (q) + y/Om (2 narrow) in, plus the revolving
-        # chunk-row state traffic — 12 columns is a generous estimate
-        chunk = _pick_chunk_batch(n_steps, nlf, nbf, n_cols=12,
-                                  budget_bytes=12 * 2 ** 20)
-    n_chunks = n_steps // chunk
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    fwd4 = lambda i: (i, 0, 0, 0)
-    blk = lambda d, lanes: pl.BlockSpec((chunk, d, nbf, lanes), fwd4,
-                                        memory_space=pltpu.VMEM)
-    in_specs = [
-        rep((nbf, n_tri)),                              # R packed
-        rep((nbf, q)),                                  # W
-        rep((q, nbf, nlf)),                             # x0
-        rep(theta_lanes.shape),                         # theta
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),          # tgrid
-        rep((1, q)),                                    # t_vec
-        blk(q, 1),                                      # D
-        blk(1, 1),                                      # y
-        blk(1, 1),                                      # Om
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),          # mask
-        rep((F, nlf)),                                  # seed logdens
-    ]
-    rep_rows = (lambda a: jnp.repeat(a, F, axis=0)) if F > 1 \
-        else (lambda a: a)
-    R_packed = rep_rows(_pack_tri(Rs, pairs))
-    W_rows = rep_rows(W_s)
-
-    def run(with_obs, ld_seed):
-        kern = functools.partial(
-            _dalton_filter_kernel, ode_flat, jac_flat, with_obs,
-            chunk, q, nbf, n_tri, nlf, q_const, F)
-        return pl.pallas_call(
-            kern,
-            out_shape=jax.ShapeDtypeStruct((F, nlf), jnp.float32),
-            grid=(n_chunks,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((F, nlf), lambda i: (0, 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((q, nbf, nlf), jnp.float32),
-                pltpu.VMEM((n_tri, nbf, nlf), jnp.float32),
-                pltpu.VMEM((F, nlf), jnp.float32),
-            ],
-            interpret=_interpret_mode(interpret),
-        )(R_packed.astype(jnp.float32), W_rows.astype(jnp.float32),
-          x0_lanes, theta_lanes,
-          tgrid[:, None].astype(jnp.float32),
-          t_vec[None, :].astype(jnp.float32),
-          d_k, y_k, om_k, mask_k, ld_seed.astype(jnp.float32))
-
-    ld_joint = run(True, ld0)
-    ld_marg = run(False, jnp.zeros((F, nlf), jnp.float32))
-    return _unfold_lanes(ld_joint - ld_marg, F)[0]
+        obs_data, obs_times, obs_weight, obs_var, "dalton_fused_batch")
+    ld0, n_lane = prep[-1], prep[0]
+    ld_joint = _dalton_run(prep, ode_flat, jac_flat, True, 0, ld0)
+    ld_marg = _dalton_run(prep, ode_flat, jac_flat, False, 0,
+                          jnp.zeros((1, n_lane), jnp.float32))
+    return (ld_joint - ld_marg)[0]
 
 
 def dalton_fused_batch_grad(thetas, ode_weight, ode_inits,
                             t_min, t_max, n_steps,
                             prior_pars,
                             obs_data, obs_times, obs_weight, obs_var,
-                            ode_flat, jac_flat=None, chunk=None,
-                            interpret="auto", kalman_type="standard"):
+                            ode_flat, jac_flat=None, kalman_type="standard"):
     r"""
     Lane-batched fused DALTON log-likelihood AND its theta-gradient via
-    forward-mode tangent-augmented kernels (in-kernel `jax.jvp` of the
-    pure per-step update; same trick as
+    forward-mode tangent augmentation (`jax.jvp` of the pure per-step
+    update; same trick as
     :func:`rodeo_tpu.ops.pallas_fenrir.fenrir_fused_batch_grad`).
-    Because the DALTON kernels carry no per-step stores, the whole
-    augmented computation stays inside the two filter kernels.
+    DALTON stores no per-step state, so the whole augmented computation
+    stays inside the two filter passes.
 
     ``ode_inits`` must not depend on theta (tangent seeded zero).
 
     Returns:
         (tuple): ``loglik (n_lane,)``, ``grad (n_lane, n_theta)``.
     """
-    from rodeo_tpu.ops.pallas_kalman import (
-        resolve_kalman_type, normalize_prior_pars, normalize_meas_var)
     kalman_type = resolve_kalman_type(kalman_type)
     prior_pars = normalize_prior_pars(kalman_type, prior_pars)
     obs_var = normalize_meas_var(kalman_type, obs_var)
-    from rodeo_tpu.ops.pallas_kalman import _pick_chunk_batch as _pcb
-
-    n_theta = thetas.shape[1]
-    n_tan = n_theta
-    n_aug = 1 + n_tan
+    n_tan = thetas.shape[1]
     prep = _dalton_prepare(
         thetas, ode_weight, ode_inits, t_min, t_max, n_steps, prior_pars,
         obs_data, obs_times, obs_weight, obs_var,
         "dalton_fused_batch_grad")
-    (n_lane, n_block, q, n_tri, pairs, q_const, Rs, W_s, x0_lanes,
-     tgrid, t_vec, theta_lanes, d_k, y_k, om_k, mask_k, ld0) = prep
-
-    if chunk is None:
-        # augmented carries are (1+n_tan)x wider: shrink the chunk
-        chunk = _pcb(n_steps, n_lane * n_aug)
-    n_chunks = n_steps // chunk
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    fwd4 = lambda i: (i, 0, 0, 0)
-    blk = lambda d, lanes: pl.BlockSpec((chunk, d, n_block, lanes), fwd4,
-                                        memory_space=pltpu.VMEM)
-    in_specs = [
-        rep((n_block, n_tri)),                          # R packed
-        rep((n_block, q)),                              # W
-        rep((q, n_block, n_lane)),                      # x0
-        rep(theta_lanes.shape),                         # theta
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),          # tgrid
-        rep((1, q)),                                    # t_vec
-        blk(q, 1),                                      # D
-        blk(1, 1),                                      # y
-        blk(1, 1),                                      # Om
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),          # mask
-        rep((n_aug, n_lane)),                           # seed logdens rows
-    ]
-    R_packed = _pack_tri(Rs, pairs)
-    zeros_tan = jnp.zeros((n_tan, n_lane), jnp.float32)
-
-    def run(with_obs, ld_seed):
-        kern = functools.partial(
-            _dalton_filter_kernel_tan, ode_flat, jac_flat, with_obs,
-            n_tan, chunk, q, n_block, n_tri, n_lane, q_const)
-        return pl.pallas_call(
-            kern,
-            out_shape=jax.ShapeDtypeStruct((n_aug, n_lane), jnp.float32),
-            grid=(n_chunks,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((n_aug, n_lane), lambda i: (0, 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((n_aug * q, n_block, n_lane), jnp.float32),
-                pltpu.VMEM((n_aug * n_tri, n_block, n_lane), jnp.float32),
-                pltpu.VMEM((n_aug, n_lane), jnp.float32),
-            ],
-            interpret=_interpret_mode(interpret),
-        )(R_packed.astype(jnp.float32), W_s.astype(jnp.float32),
-          x0_lanes, theta_lanes,
-          tgrid[:, None].astype(jnp.float32),
-          t_vec[None, :].astype(jnp.float32),
-          d_k, y_k, om_k, mask_k, ld_seed.astype(jnp.float32))
-
+    ld0, n_lane = prep[-1], prep[0]
     # ld0 is theta-independent (x0 must not depend on theta): tangent rows
     # seed zero
-    ld_joint = run(True, jnp.concatenate([ld0, zeros_tan], axis=0))
-    ld_marg = run(False, jnp.zeros((n_aug, n_lane), jnp.float32))
+    zeros_tan = jnp.zeros((n_tan, n_lane), jnp.float32)
+    ld_joint = _dalton_run(prep, ode_flat, jac_flat, True, n_tan,
+                           jnp.concatenate([ld0, zeros_tan], axis=0))
+    ld_marg = _dalton_run(prep, ode_flat, jac_flat, False, n_tan,
+                          jnp.zeros((1 + n_tan, n_lane), jnp.float32))
     diff = ld_joint - ld_marg
     return diff[0], jnp.transpose(diff[1:])

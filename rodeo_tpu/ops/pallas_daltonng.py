@@ -1,14 +1,14 @@
 r"""
-Fused Pallas non-Gaussian DALTON likelihood (lane-batched).
+Fused non-Gaussian DALTON likelihood (lane-batched).
 
 ``daltonng`` (``rodeo_tpu/inference/dalton.py``, reference
 ``dalton.py:851-949``) assembles ``logy_x + logx_z - logx_yhat`` from two
 forward filters and two (linear) smoothing passes.  The XLA path runs
 three sequential 4k-step scans per evaluation; this module restructures
-the whole pipeline TPU-first:
+the whole pipeline:
 
-* **two fused Pallas forward filters** — the Laplace-linearized filter
-  (new kernel below: the fused EK filter plus masked per-component
+* **two fused lane-batched forward filters** — the Laplace-linearized
+  filter (below: the fused EK filter step plus masked per-component
   pseudo-observation updates) and the plain ODE filter
   (:func:`rodeo_tpu.ops.pallas_kalman.fused_filter_batch`) — both
   lane-batched, both storing the per-step moments the smoothing passes
@@ -34,23 +34,23 @@ transition (IBM prior), and **component-independent** observation models
 
 .. math:: \ell_i(y_i, x) = \sum_{b,j} \ell_{ij}(y_{ib}, x_{bj})
 
-whose per-component contributions the user supplies as a Mosaic-safe
+whose per-component contributions the user supplies as an
 elementwise callable (``obs_comp_flat`` below); the Laplace gradient and
-(diagonal) Hessian are derived inside the kernel by nested forward-mode
+(diagonal) Hessian are derived inside the step by nested forward-mode
 ``jax.jvp`` — no user-written derivatives.
 """
 import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from rodeo_tpu.ops.flat_rows import flat_call
 from rodeo_tpu.ops.precond import taylor_scale, scale_prior
 from rodeo_tpu.ops.pallas_kalman import (
-    _tri_idx, _pack_tri, _unpack_tri, _pick_chunk_batch, _sym_quadform,
-    _matvec, _acc, _interpret_mode, _static_scaled_qconst, p_cols_at,
-    _gain_cols_batched, fused_filter_batch)
+    _tri_idx, _pack_tri, _unpack_tri, _sym_quadform, _matvec, _acc,
+    _static_scaled_qconst, p_cols_at, _gain_cols_batched,
+    fused_filter_batch)
+from rodeo_tpu.ops.scan import scan_steps
 
 __all__ = ["daltonng_fused_batch", "daltonng_fused_batch_grad"]
 
@@ -59,8 +59,8 @@ _LOG2PI = 1.8378770664093453
 
 def _comp_grad_hess(obs_comp_flat, j, y_cols, x_col, th, iobs):
     """Elementwise first/second derivative of the user's per-component
-    observation loglik via nested jvp (Mosaic-safe: jvp of jnp column ops
-    is jnp column ops)."""
+    observation loglik via nested jvp (jvp of jnp column ops is jnp
+    column ops)."""
     ones = jnp.ones_like(x_col)
 
     def f(x):
@@ -73,130 +73,18 @@ def _comp_grad_hess(obs_comp_flat, j, y_cols, x_col, th, iobs):
     h = jax.jvp(df, (x_col,), (ones,))[1]
     return g, h
 
-
-def _filter_nn_kernel_batch(ode_flat, jac_flat, obs_comp_flat, obs_dims,
-                            mode, chunk, q, n_block, n_tri, n_lane, n_ydim,
-                            q_const,
-                            r_ref, w_ref, x0_ref, th_ref, tgrid_ref, tv_ref,
-                            y_ref, iobs_ref, mask_ref,
-                            mf_ref, pf_ref, mp_ref, pp_ref,
-                            m_scr, p_scr):
-    """Laplace-linearized DALTON forward filter, lane-batched: the fused
-    EK filter step (predict / interrogate / ODE update) followed by masked
-    scalar pseudo-observation updates, one per observed state component
-    (sequential measurement processing == the reference's stacked joint
-    update, since the ODE and pseudo-obs noises are independent)."""
-    pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    Qm = q_const
-    R_cols = [r_ref[:, k:k + 1] for k in range(n_tri)]
-    W_cols = [w_ref[:, j:j + 1] for j in range(q)]
-    tv_cols = [tv_ref[:, j:j + 1] for j in range(q)]
-
-    @pl.when(gi == 0)
-    def _init():
-        for j in range(q):
-            m_scr[j] = x0_ref[j]
-        for k in range(n_tri):
-            p_scr[k] = jnp.zeros((n_block, n_lane), jnp.float32)
-
-    def body(r, carry):
-        m_cols = list(carry[:q])
-        p_cols = list(carry[q:])
-        mp_cols = _matvec(q, Qm, m_cols)
-        pp_cols = _sym_quadform(q, Qm, p_cols, where)
-        pp_cols = [pp_cols[k] + R_cols[k] for k in range(n_tri)]
-        x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
-        t_n = tgrid_ref[gi * chunk + r, 0]
-        f0 = ode_flat(x_cols, th_ref, t_n)
-        jd_cols = jac_flat(x_cols, th_ref, t_n) if mode == "kramer" \
-            else [None] * q
-        H_cols = []
-        for j in range(q):
-            if jd_cols[j] is None:
-                H_cols.append(W_cols[j])
-            else:
-                H_cols.append(W_cols[j] - jd_cols[j] * tv_cols[j])
-        hm = None
-        for j in range(q):
-            hm = _acc(hm, H_cols[j] * mp_cols[j])
-        mm = -f0
-        for j in range(q):
-            if jd_cols[j] is not None:
-                mm = mm + jd_cols[j] * x_cols[j]
-        z = -(hm + mm)
-        PH_cols = []
-        for i in range(q):
-            acc = None
-            for j in range(q):
-                acc = _acc(acc, p_cols_at(pp_cols, where, i, j) * H_cols[j])
-            PH_cols.append(acc)
-        S = None
-        for i in range(q):
-            S = _acc(S, H_cols[i] * PH_cols[i])
-        if mode in ("rodeo",):
-            S = S + S
-        inv_S = 1.0 / S
-        gain = [PH_cols[i] * inv_S for i in range(q)]
-        mf_cols = [mp_cols[i] + gain[i] * z for i in range(q)]
-        IKW = [[(1.0 if i == j else 0.0) - gain[i] * H_cols[j]
-                for j in range(q)] for i in range(q)]
-        pf_cols = _sym_quadform(q, IKW, pp_cols, where)
-        if mode in ("rodeo",):
-            V = S * 0.5
-            pf_cols = [pf_cols[k] + gain[i] * gain[j] * V
-                       for k, (i, j) in enumerate(pairs)]
-
-        # --- masked Laplace pseudo-observation updates -------------------
-        # linearization point: the PREDICTED mean in original coordinates
-        # (x_cols), matching the reference's stacked joint update at
-        # mean_state_pred (`dalton.py:613-622` upstream)
-        mask = mask_ref[gi * chunk + r, 0]
-        y_cols = [y_ref[r, d] for d in range(n_ydim)]
-        iobs = iobs_ref[gi * chunk + r, 0]
-        for j in obs_dims:
-            g_j, h_j = _comp_grad_hess(
-                obs_comp_flat, j, y_cols, x_cols[j], th_ref, iobs)
-            # vhat = -1/Hess (strictly concave loglik on the fast path)
-            vhat = -1.0 / h_j
-            # pseudo-data: yhat = x_pred + vhat * grad (original coords)
-            zo = (x_cols[j] + vhat * g_j) - tv_cols[j] * mf_cols[j]
-            # scalar row D = t_j e_j in scaled coordinates
-            PD = [p_cols_at(pf_cols, where, i, j) * tv_cols[j]
-                  for i in range(q)]
-            So = vhat + tv_cols[j] * PD[j]
-            K = [PD[i] * (mask / So) for i in range(q)]
-            mf_cols = [mf_cols[i] + K[i] * zo for i in range(q)]
-            IKD = [[(1.0 if i == l else 0.0)
-                    - (K[i] * tv_cols[j] if l == j else 0.0)
-                    for l in range(q)] for i in range(q)]
-            pj = _sym_quadform(q, IKD, pf_cols, where)
-            pf_cols = [pj[kk] + K[i] * K[l] * vhat
-                       for kk, (i, l) in enumerate(pairs)]
-
-        for j in range(q):
-            mp_ref[r, j] = mp_cols[j]
-            mf_ref[r, j] = mf_cols[j]
-        for k in range(n_tri):
-            pp_ref[r, k] = pp_cols[k]
-            pf_ref[r, k] = pf_cols[k]
-        return tuple(mf_cols) + tuple(pf_cols)
-
-    m0 = [m_scr[j] for j in range(q)]
-    p0 = [p_scr[k] for k in range(n_tri)]
-    out = jax.lax.fori_loop(0, chunk, body, tuple(m0) + tuple(p0))
-    for j in range(q):
-        m_scr[j] = out[j]
-    for k in range(n_tri):
-        p_scr[k] = out[q + k]
-
-
 def _filter_nn_step_pure(ode_flat, jac_flat, obs_comp_flat, obs_dims,
                          mode, q, where, pairs, q_const,
                          R_cols, W_cols, tv_cols, t_n,
                          y_cols, iobs, mask):
-    """Pure per-step Laplace-linearized DALTON filter update (tangent twin
-    of the `_filter_nn_kernel_batch` body).  The observation data
+    """Pure per-step Laplace-linearized DALTON filter update: the fused
+    EK filter step (predict / interrogate / ODE update) followed by masked
+    scalar pseudo-observation updates, one per observed state component
+    (sequential measurement processing == the reference's stacked joint
+    update, since the ODE and pseudo-obs noises are independent).  The
+    linearization point is the PREDICTED mean in original coordinates,
+    matching the reference's stacked joint update at mean_state_pred
+    (upstream ``dalton.py:613-622``).  The observation data
     (y, iobs, mask) are theta-independent and closed over; theta flows
     through the ODE fields AND the user observation loglik."""
 
@@ -206,9 +94,9 @@ def _filter_nn_step_pure(ode_flat, jac_flat, obs_comp_flat, obs_dims,
         pp_cols = _sym_quadform(q, q_const, p_cols, where)
         pp_cols = [pp_cols[k] + R_cols[k] for k in range(len(pp_cols))]
         x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
-        f0 = ode_flat(x_cols, th, t_n)
-        jd_cols = jac_flat(x_cols, th, t_n) if mode == "kramer" \
-            else [None] * q
+        f0 = flat_call(ode_flat, x_cols, th, t_n)
+        jd_cols = flat_call(jac_flat, x_cols, th, t_n) \
+            if mode == "kramer" else [None] * q
         H_cols = []
         for j in range(q):
             if jd_cols[j] is None:
@@ -266,200 +154,56 @@ def _filter_nn_step_pure(ode_flat, jac_flat, obs_comp_flat, obs_dims,
     return step
 
 
-def _filter_nn_kernel_batch_tan(ode_flat, jac_flat, obs_comp_flat,
-                                obs_dims, mode, n_tan, chunk, q, n_block,
-                                n_tri, n_lane, n_ydim, q_const,
-                                r_ref, w_ref, x0_ref, th_ref, tgrid_ref,
-                                tv_ref, y_ref, iobs_ref, mask_ref,
-                                mf_ref, pf_ref, mp_ref, pp_ref,
-                                m_scr, p_scr):
-    """Tangent-augmented Laplace-linearized DALTON forward filter: primal
-    state plus ``n_tan`` tangent copies; one in-kernel `jax.jvp` of the
-    pure update per theta basis direction.  The tangent of the Laplace
-    linearization involves THIRD derivatives of the user observation
-    loglik — all derived by nesting forward-mode inside the kernel."""
-    pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    R_cols = [r_ref[:, k:k + 1] for k in range(n_tri)]
-    W_cols = [w_ref[:, j:j + 1] for j in range(q)]
-    tv_cols = [tv_ref[:, j:j + 1] for j in range(q)]
-    n_aug = 1 + n_tan
-    th_val = th_ref[:]
-    n_theta = th_val.shape[0]
-    dths = []
-    for k in range(n_tan):
-        rows = [jnp.ones_like(th_val[0:1]) if i == k
-                else jnp.zeros_like(th_val[0:1]) for i in range(n_theta)]
-        dths.append(jnp.concatenate(rows, axis=0))
-
-    @pl.when(gi == 0)
-    def _init():
-        for j in range(q):
-            m_scr[j] = x0_ref[j]
-        for d in range(n_aug * q):
-            if d >= q:
-                m_scr[d] = jnp.zeros((n_block, n_lane), jnp.float32)
-        for k in range(n_aug * n_tri):
-            p_scr[k] = jnp.zeros((n_block, n_lane), jnp.float32)
-
-    def body(r, carry):
-        t_n = tgrid_ref[gi * chunk + r, 0]
-        y_cols = [y_ref[r, d] for d in range(n_ydim)]
-        iobs = iobs_ref[gi * chunk + r, 0]
-        mask = mask_ref[gi * chunk + r, 0]
-        step = _filter_nn_step_pure(
-            ode_flat, jac_flat, obs_comp_flat, obs_dims, mode, q, where,
-            pairs, q_const, R_cols, W_cols, tv_cols, t_n, y_cols, iobs,
-            mask)
-        m_cols = tuple(carry[:q])
-        p_cols = tuple(carry[n_aug * q:n_aug * q + n_tri])
-        prim = step(m_cols, p_cols, th_val)
-        outs = [prim]
-        for k in range(n_tan):
-            dm = tuple(carry[(1 + k) * q:(2 + k) * q])
-            dp = tuple(carry[n_aug * q + (1 + k) * n_tri:
-                             n_aug * q + (2 + k) * n_tri])
-            _, tan = jax.jvp(step, (m_cols, p_cols, th_val),
-                             (dm, dp, dths[k]))
-            outs.append(tan)
-        for d, (mfc, pfc, mpc, ppc) in enumerate(outs):
-            for j in range(q):
-                mf_ref[r, d * q + j] = mfc[j]
-                mp_ref[r, d * q + j] = mpc[j]
-            for k in range(n_tri):
-                pf_ref[r, d * n_tri + k] = pfc[k]
-                pp_ref[r, d * n_tri + k] = ppc[k]
-        new_m = sum((list(o[0]) for o in outs), [])
-        new_p = sum((list(o[1]) for o in outs), [])
-        return tuple(new_m) + tuple(new_p)
-
-    m0 = [m_scr[d] for d in range(n_aug * q)]
-    p0 = [p_scr[k] for k in range(n_aug * n_tri)]
-    out = jax.lax.fori_loop(0, chunk, body, tuple(m0) + tuple(p0))
-    for d in range(n_aug * q):
-        m_scr[d] = out[d]
-    for k in range(n_aug * n_tri):
-        p_scr[k] = out[n_aug * q + k]
-
-
-def _filter_nn_batch(ode_flat, jac_flat, obs_comp_flat, obs_dims, mode,
-                     n_steps, Qs, Rs, W_s, x0_lanes, theta_lanes, tgrid,
-                     t_vec, y_k, iobs_grid, mask_grid, q_const,
-                     chunk=None, interpret="auto"):
-    q, n_block, n_lane = x0_lanes.shape
-    n_ydim = y_k.shape[1]
-    pairs, _ = _tri_idx(q)
-    n_tri = len(pairs)
-    if chunk is None:
-        chunk = _pick_chunk_batch(n_steps, n_lane)
-    n_chunks = n_steps // chunk
-    kern = functools.partial(
-        _filter_nn_kernel_batch, ode_flat, jac_flat, obs_comp_flat,
-        obs_dims, mode, chunk, q, n_block, n_tri, n_lane, n_ydim, q_const)
-    outs = [
-        jax.ShapeDtypeStruct((n_steps, q, n_block, n_lane), jnp.float32),
-        jax.ShapeDtypeStruct((n_steps, n_tri, n_block, n_lane),
-                             jnp.float32),
-        jax.ShapeDtypeStruct((n_steps, q, n_block, n_lane), jnp.float32),
-        jax.ShapeDtypeStruct((n_steps, n_tri, n_block, n_lane),
-                             jnp.float32),
-    ]
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    fwd4 = lambda i: (i, 0, 0, 0)
-    blk = lambda d, lanes: pl.BlockSpec((chunk, d, n_block, lanes), fwd4,
-                                        memory_space=pltpu.VMEM)
-    in_specs = [
-        rep((n_block, n_tri)),                          # R packed
-        rep((n_block, q)),                              # W scaled
-        rep((q, n_block, n_lane)),                      # x0
-        rep(theta_lanes.shape),                         # theta
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),          # tgrid
-        rep((1, q)),                                    # t_vec
-        blk(n_ydim, 1),                                 # y rows
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),          # obs index
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),          # mask
-    ]
-    out_specs = [blk(q, n_lane), blk(n_tri, n_lane),
-                 blk(q, n_lane), blk(n_tri, n_lane)]
-    R_packed = _pack_tri(Rs, pairs)
-    return pl.pallas_call(
-        kern, out_shape=outs, grid=(n_chunks,),
-        in_specs=in_specs, out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((q, n_block, n_lane), jnp.float32),
-            pltpu.VMEM((n_tri, n_block, n_lane), jnp.float32),
-        ],
-        interpret=_interpret_mode(interpret),
-    )(R_packed.astype(jnp.float32), W_s.astype(jnp.float32),
-      x0_lanes, theta_lanes, tgrid[:, None].astype(jnp.float32),
-      t_vec[None, :].astype(jnp.float32), y_k, iobs_grid, mask_grid)
-
-
 def _filter_nn_batch_tan(ode_flat, jac_flat, obs_comp_flat, obs_dims,
                          mode, n_tan, n_steps, Qs, Rs, W_s, x0_lanes,
                          theta_lanes, tgrid, t_vec, y_k, iobs_grid,
-                         mask_grid, q_const, chunk=None, interpret="auto"):
-    """Invoke the tangent-augmented Laplace filter; outputs stack primal +
+                         mask_grid, q_const):
+    """Laplace-linearized DALTON forward filter, lane-batched, carrying
+    the primal state plus ``n_tan`` tangent copies (one `jax.jvp` of the
+    pure update per theta basis direction; the tangent of the Laplace
+    linearization involves THIRD derivatives of the user observation
+    loglik, all derived by nesting forward mode).  Outputs stack primal +
     tangents on the d axis: (n_steps, (1+n_tan)*q | *n_tri, nb, B)."""
+    del Qs
     q, n_block, n_lane = x0_lanes.shape
     n_ydim = y_k.shape[1]
-    pairs, _ = _tri_idx(q)
+    pairs, where = _tri_idx(q)
     n_tri = len(pairs)
-    n_aug = 1 + n_tan
-    if chunk is None:
-        chunk = _pick_chunk_batch(n_steps, n_lane * n_aug)
-    n_chunks = n_steps // chunk
-    kern = functools.partial(
-        _filter_nn_kernel_batch_tan, ode_flat, jac_flat, obs_comp_flat,
-        tuple(obs_dims), mode, n_tan, chunk, q, n_block, n_tri, n_lane,
-        n_ydim, q_const)
-    outs = [
-        jax.ShapeDtypeStruct((n_steps, n_aug * q, n_block, n_lane),
-                             jnp.float32),
-        jax.ShapeDtypeStruct((n_steps, n_aug * n_tri, n_block, n_lane),
-                             jnp.float32),
-        jax.ShapeDtypeStruct((n_steps, n_aug * q, n_block, n_lane),
-                             jnp.float32),
-        jax.ShapeDtypeStruct((n_steps, n_aug * n_tri, n_block, n_lane),
-                             jnp.float32),
-    ]
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    fwd4 = lambda i: (i, 0, 0, 0)
-    blk = lambda d, lanes: pl.BlockSpec((chunk, d, n_block, lanes), fwd4,
-                                        memory_space=pltpu.VMEM)
-    in_specs = [
-        rep((n_block, n_tri)),
-        rep((n_block, q)),
-        rep((q, n_block, n_lane)),
-        rep(theta_lanes.shape),
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        rep((1, q)),
-        blk(n_ydim, 1),
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    out_specs = [blk(n_aug * q, n_lane), blk(n_aug * n_tri, n_lane),
-                 blk(n_aug * q, n_lane), blk(n_aug * n_tri, n_lane)]
-    R_packed = _pack_tri(Rs, pairs)
-    return pl.pallas_call(
-        kern, out_shape=outs, grid=(n_chunks,),
-        in_specs=in_specs, out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((n_aug * q, n_block, n_lane), jnp.float32),
-            pltpu.VMEM((n_aug * n_tri, n_block, n_lane), jnp.float32),
-        ],
-        interpret=_interpret_mode(interpret),
-    )(R_packed.astype(jnp.float32), W_s.astype(jnp.float32),
-      x0_lanes, theta_lanes, tgrid[:, None].astype(jnp.float32),
-      t_vec[None, :].astype(jnp.float32), y_k, iobs_grid, mask_grid)
+    R_packed = _pack_tri(Rs, pairs).astype(jnp.float32)
+    W = W_s.astype(jnp.float32)
+    R_cols = [R_packed[:, k:k + 1] for k in range(n_tri)]
+    W_cols = [W[:, j:j + 1] for j in range(q)]
+    tv_cols = [t_vec[j].astype(jnp.float32) for j in range(q)]
+    th_val = theta_lanes.astype(jnp.float32)
+    n_theta = th_val.shape[0]
+    dths = [jnp.concatenate([jnp.ones_like(th_val[0:1]) if i == k
+                             else jnp.zeros_like(th_val[0:1])
+                             for i in range(n_theta)], axis=0)
+            for k in range(n_tan)]
+
+    def step(carry, x_t):
+        m_aug, p_aug = carry
+        t_n, y_t, iobs, mask = x_t
+        pure = _filter_nn_step_pure(
+            ode_flat, jac_flat, obs_comp_flat, tuple(obs_dims), mode, q,
+            where, pairs, q_const, R_cols, W_cols, tv_cols, t_n,
+            [y_t[d] for d in range(n_ydim)], iobs, mask)
+        args = (tuple(m_aug[:q]), tuple(p_aug[:n_tri]), th_val)
+        outs = [pure(*args)]
+        for k in range(n_tan):
+            tans = (tuple(m_aug[(1 + k) * q:(2 + k) * q]),
+                    tuple(p_aug[(1 + k) * n_tri:(2 + k) * n_tri]), dths[k])
+            outs.append(jax.jvp(pure, args, tans)[1])
+        ys = tuple([c for o in outs for c in o[s]] for s in range(4))
+        return (ys[0], ys[1]), ys
+
+    zero = jnp.zeros((n_block, n_lane), jnp.float32)
+    carry0 = (list(x0_lanes.astype(jnp.float32)) + [zero] * (n_tan * q),
+              [zero] * ((1 + n_tan) * n_tri))
+    _, outs = scan_steps(step, carry0,
+                         (tgrid.astype(jnp.float32), y_k,
+                          iobs_grid[:, 0], mask_grid[:, 0]))
+    return outs
 
 
 def _cond_params_cols(q, n_tri, q_const, Rs, mf, pf, mp, pp):
@@ -483,15 +227,11 @@ def _cond_params_cols(q, n_tri, q_const, Rs, mf, pf, mp, pp):
     return G_k, b_k, C_k
 
 
-def _suffix_means(G_k, b_k, C_k, m_term, p_term, interpret):
-    """Smoothed-mean recursion ``m_n = G_n m_{n+1} + b_n`` via the
-    lane-batched Pallas recursion kernel.  (An XLA ``associative_scan``
-    of the affine composition was tried first: its pad/slice lowering
-    and einsum layout transposes cost 96 ms at 4k steps x 16 lanes on
-    v5e vs ~2 ms for the kernel.)"""
+def _suffix_means(G_k, b_k, C_k, m_term, p_term):
+    """Smoothed-mean recursion ``m_n = G_n m_{n+1} + b_n`` via the shared
+    lane-batched backward recursion."""
     from rodeo_tpu.ops.pallas_kalman import smoother_recursion_batch
-    ms, _ = smoother_recursion_batch(b_k, G_k, C_k, m_term, p_term,
-                                     interpret=interpret)
+    ms, _ = smoother_recursion_batch(b_k, G_k, C_k, m_term, p_term)
     return ms
 
 
@@ -512,8 +252,7 @@ def _masked_eigh(C, q):
     dense = _unpack_tri(jnp.moveaxis(C, 1, -1), q, pairs)  # (T,nb,B,q,q)
     if q <= 3:
         # closed-form elementwise eigendecomposition: jnp.linalg.eigh of
-        # millions of tiny matrices is an iterative routine that
-        # dominated the whole daltonng pipeline on TPU
+        # millions of tiny matrices is an iterative routine
         from rodeo_tpu.ops.linalg import sym_eigh_small
         w, v = sym_eigh_small(dense)
     else:
@@ -630,9 +369,8 @@ def _logpdf_packed_q(q, x, mean, C):
 def _logpdf_packed_pieces(q, x, mean, C):
     w, v, keep = _masked_eigh(C, q)
     z = jnp.moveaxis(x - mean, 1, -1)                      # (T, nb, B, q)
-    # broadcast-sum, NOT einsum: batched q=3 dot_generals lower to
-    # MXU-padded contractions — measured 75.9 of the 101 ms daltonng
-    # fused pass at 128 lanes (same finding as the r3 sqrt-kernel work)
+    # broadcast-sum, NOT einsum: batched q=3 dot_generals are tiny
+    # padded contractions
     zv = jnp.sum(z[..., :, None] * v, axis=-2)
     safe_w = jnp.where(keep, w, 1.0)
     quad = jnp.sum(jnp.where(keep, zv * zv / safe_w, 0.0), axis=-1)
@@ -672,15 +410,14 @@ def daltonng_fused_batch(thetas, ode_weight, ode_inits,
                          t_min, t_max, n_steps,
                          prior_pars,
                          obs_data, obs_times, obs_comp_flat, obs_dims,
-                         ode_flat, jac_flat=None, chunk=None,
-                         interpret="auto", kalman_type="standard",
+                         ode_flat, jac_flat=None, kalman_type="standard",
                          _return_parts=False):
     r"""
     Lane-batched fused non-Gaussian DALTON log-likelihood
     ``logy_x + logx_z - logx_yhat`` — ``n_lane`` evaluations per pipeline.
 
     Args:
-        obs_comp_flat (Callable): Mosaic-safe per-component observation
+        obs_comp_flat (Callable): Elementwise per-component observation
             loglik contribution
             ``obs_comp_flat(y_cols, x_col, j, th, iobs) -> (n_block, B)``
             — elementwise in the column values, evaluated at state
@@ -715,19 +452,17 @@ def daltonng_fused_batch(thetas, ode_weight, ode_inits,
         return _daltonng_fused_batch_impl(
             thetas, ode_weight, ode_inits, t_min, t_max, n_steps,
             prior_pars, obs_data, obs_times, obs_comp_flat, obs_dims,
-            ode_flat, jac_flat, chunk, interpret,
-            _return_parts=_return_parts)
+            ode_flat, jac_flat, _return_parts=_return_parts)
 
 
 def _daltonng_fused_batch_impl(thetas, ode_weight, ode_inits,
                                t_min, t_max, n_steps, prior_pars,
                                obs_data, obs_times, obs_comp_flat,
-                               obs_dims, ode_flat, jac_flat, chunk,
-                               interpret, _return_parts=False):
-    # highest-precision matmuls: the associative mean scan and logpdf
-    # einsums run on Taylor-scaled quantities of magnitude ~1e6, where
-    # the TPU default bfloat16 matmul passes inject ~8e-3 relative noise
-    # (see solve_mv_fused_stationary)
+                               obs_dims, ode_flat, jac_flat,
+                               _return_parts=False):
+    # highest-precision matmuls: the logpdf einsums run on Taylor-scaled
+    # quantities of magnitude ~1e6, where a reduced-precision (bf16 or
+    # TF32) matmul pass injects ~1e-3 relative noise
     n_lane = thetas.shape[0]
     n_block, n_bmeas, q = ode_weight.shape
     pairs, _ = _tri_idx(q)
@@ -768,11 +503,10 @@ def _daltonng_fused_batch_impl(thetas, ode_weight, ode_inits,
     y_k = jnp.transpose(y_grid[1:], (0, 2, 1))[..., None]  # (T, ydim, nb, 1)
 
     # --- filter 1: Laplace-linearized (conditions on Z and pseudo-Y) ----
-    mf, pf, mp, pp = _filter_nn_batch(
-        ode_flat, jac_flat, obs_comp_flat, tuple(obs_dims), mode,
+    mf, pf, mp, pp = _filter_nn_batch_tan(
+        ode_flat, jac_flat, obs_comp_flat, tuple(obs_dims), mode, 0,
         n_steps, Qs, Rs, W_s, x0_lanes, theta_lanes, tgrid, t_vec,
-        y_k, iobs_grid[1:], mask_grid[1:], q_const,
-        chunk=chunk, interpret=interpret)
+        y_k, iobs_grid[1:], mask_grid[1:], q_const)
 
     # prepend the exact init row so indices match the XLA layout
     m0 = x0_lanes[None]                                   # (1, q, nb, B)
@@ -787,9 +521,9 @@ def _daltonng_fused_batch_impl(thetas, ode_weight, ode_inits,
                                     mf_full[1:], pf_full[1:],
                                     mp_full[1:], pp_full[1:])
 
-    # smoothed means: rows 1..N-1 via the Pallas recursion kernel
+    # smoothed means: rows 1..N-1 via the shared backward recursion
     means = _suffix_means(G_k, b_k, C, mf_full[n_steps],
-                          pf_full[n_steps], interpret)
+                          pf_full[n_steps])
     mean_path = jnp.concatenate([m0, means, mf_full[n_steps][None]])
 
     # logx_yhat: quadratic form vanishes at the smoothed mean ->
@@ -815,11 +549,11 @@ def _daltonng_fused_batch_impl(thetas, ode_weight, ode_inits,
         logy_x = logy_x + jnp.sum(contrib, axis=(0, 1))
 
     # --- filter 2: plain ODE filter (marginal p(Z)) ---------------------
-    # gains emitted straight from the kernel (entry 0 conditions onto the
-    # Dirac init — not needed); final filtered state seeds logx_zN
+    # gains emitted by the filter step (entry 0 conditions onto the Dirac
+    # init — not needed); final filtered state seeds logx_zN
     Az_k, bz_full, Cz_full, mz_last, pz_last = fused_filter_batch(
         ode_flat, jac_flat, n_steps, Qs, Rs, W_s, x0_lanes,
-        theta_lanes, tgrid, t_vec, chunk=chunk, interpret=interpret,
+        theta_lanes, tgrid, t_vec,
         raw_q_const=q_const, mode=mode, emit="gains")
     Gz_k, bz_k, Cz = Az_k[1:], bz_full[1:], Cz_full[1:]
 
@@ -828,8 +562,8 @@ def _daltonng_fused_batch_impl(thetas, ode_weight, ode_inits,
         mean_path[n_steps][None], mz_last[None],
         pz_last[None], q), axis=(0, 1))
     # mean_sim_i = b_i + sum_j Gz[i,j] path_j — elementwise column sums
-    # (einsum on these layouts lowers to costly transposes; and the TPU
-    # default dot precision is bfloat16)
+    # (einsum on these layouts lowers to costly transposes, and a default
+    # f32 dot may run at reduced precision)
     path_n1 = mean_path[2:n_steps + 1]                # (T-1, q, nb, B)
     mean_sim = bz_k + jnp.stack(
         [sum(Gz_k[:, i * q + j] * path_n1[:, j] for j in range(q))
@@ -852,17 +586,18 @@ def daltonng_fused_batch_grad(thetas, ode_weight, ode_inits,
                               t_min, t_max, n_steps,
                               prior_pars,
                               obs_data, obs_times, obs_comp_flat, obs_dims,
-                              ode_flat, jac_flat=None, chunk=None,
-                              interpret="auto", kalman_type="standard"):
+                              ode_flat, jac_flat=None,
+                              kalman_type="standard"):
     r"""
     Lane-batched fused non-Gaussian DALTON log-likelihood AND its
     theta-gradient via forward-mode tangent augmentation:
 
-    * the Laplace filter kernel carries tangent state (in-kernel `jax.jvp`
-      of the pure step — the tangent of the Laplace linearization uses
-      THIRD derivatives of the user loglik, all by nested forward-mode);
-    * the plain filter rides the fenrir tangent kernel;
-    * the smoothed-mean recursion rides the shared tangent mean kernel;
+    * the Laplace filter carries tangent state (`jax.jvp` of the pure
+      step — the tangent of the Laplace linearization uses THIRD
+      derivatives of the user loglik, all by nested forward-mode);
+    * the plain filter rides the fenrir tangent filter;
+    * the smoothed-mean recursion rides the shared tangent mean
+      recursion;
     * the pure XLA stages (gains, masked log-densities) are differentiated
       by plain `jax.jvp` — the masked eigen log-densities carry analytic
       constant-rank JVPs (`_logdet_packed_q`/`_logpdf_packed_q`).
@@ -930,16 +665,14 @@ def daltonng_fused_batch_grad(thetas, ode_weight, ode_inits,
         dths.append(jnp.concatenate(rows, axis=0))
 
     with jax.default_matmul_precision("highest"):
-        # --- tangent-augmented kernels ----------------------------------
+        # --- tangent-augmented filters ----------------------------------
         mf_a, pf_a, mp_a, pp_a = _filter_nn_batch_tan(
             ode_flat, jac_flat, obs_comp_flat, tuple(obs_dims), mode,
             n_tan, n_steps, Qs, Rs, W_s, x0_lanes, theta_lanes, tgrid,
-            t_vec, y_k, iobs_grid[1:], mask_grid[1:], q_const,
-            chunk=chunk, interpret=interpret)
+            t_vec, y_k, iobs_grid[1:], mask_grid[1:], q_const)
         mfz_a, pfz_a, mpz_a, ppz_a = fused_filter_batch_tan(
             ode_flat, jac_flat, mode, n_tan, n_steps, Qs, Rs, W_s,
-            x0_lanes, theta_lanes, tgrid, t_vec, q_const, chunk=chunk,
-            interpret=interpret)
+            x0_lanes, theta_lanes, tgrid, t_vec, q_const)
 
         m0 = x0_lanes[None]
         p0 = jnp.zeros((1, n_tri, n_block, n_lane), jnp.float32)
@@ -972,9 +705,9 @@ def daltonng_fused_batch_grad(thetas, ode_weight, ode_inits,
         b_aug = jnp.concatenate([o[1] for o in outs1], axis=1)
         mN_aug = jnp.concatenate([o[2] for o in outs1], axis=0)
 
-        # --- tangent mean recursion kernel ------------------------------
+        # --- tangent mean recursion -------------------------------------
         means_aug = smoother_mean_recursion_batch_tan(
-            b_aug, G_aug, mN_aug, n_tan, chunk=chunk, interpret=interpret)
+            b_aug, G_aug, mN_aug, n_tan)
 
         # --- stage 2 (XLA, jvp per tangent): log-densities --------------
         def post(th, mf, pf, mp, pp, mfz, pfz, mpz, ppz, means):

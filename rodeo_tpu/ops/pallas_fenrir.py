@@ -1,5 +1,5 @@
 r"""
-Fused Pallas fenrir likelihood.
+Fused fenrir likelihood.
 
 The fenrir backward pass (``rodeo_tpu/inference/fenrir.py::_backward``,
 reference ``fenrir.py:86-259``) is a Kalman filter over the *time-reversed*
@@ -7,19 +7,18 @@ affine Markov chain obtained from the forward filter, with Gaussian
 observation updates at grid points that carry data.  Everything except the
 recursion itself is precomputable:
 
-1. the forward filter runs as the fused Pallas kernel
-   (:func:`rodeo_tpu.ops.pallas_kalman.fused_filter`);
-2. the backward-chain parameters :math:`(A_n, b_n, C_n)` — identical to the
-   smoothing gains — vectorize over the whole time axis as batched XLA ops;
-3. the observation model is scattered onto the solver grid as dense masked
+1. the forward filter (:func:`rodeo_tpu.ops.pallas_kalman.fused_filter_batch`)
+   emits the backward-chain parameters :math:`(A_n, b_n, C_n)` — identical
+   to the smoothing gains — step by step;
+2. the observation model is scattered onto the solver grid as dense masked
    arrays (zero weight / unit variance at no-obs steps, so the masked
    update is an exact identity and the masked log-density term is zeroed) —
-   this removes the reference's per-step ``lax.cond`` branches, which is
-   exactly the "masked dense updates" transformation SURVEY.md §7 flags as
-   required for parallel/TPU execution;
-4. a Pallas kernel runs the remaining sequential recursion (predict through
-   the backward kernel + masked scalar-observation update + log-density
-   accumulation in scratch), streamed in reverse chunk order.
+   this removes the reference's per-step ``lax.cond`` branches (the
+   "masked dense updates" transformation of SURVEY.md §7);
+3. a step function runs the remaining sequential recursion (predict
+   through the backward kernel + masked scalar-observation update +
+   log-density accumulation), backwards in time under
+   :func:`rodeo_tpu.ops.scan.scan_steps`.
 
 Supported configuration (falls back to the XLA path otherwise):
 ``n_bmeas == 1``, ``n_bobs == 1`` per block, ``q <= 5``, all four built-in
@@ -28,18 +27,16 @@ are accepted — the likelihood value is form-independent and the Joseph
 covariance propagation is PSD-by-construction like the square-root form
 (:func:`rodeo_tpu.ops.pallas_kalman.resolve_kalman_type`).
 """
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from rodeo_tpu.ops.flat_rows import flat_call
 from rodeo_tpu.ops.precond import taylor_scale, scale_prior
 from rodeo_tpu.ops.pallas_kalman import (
-    fused_filter, _tri_idx, _pack_tri, _unpack_tri, _pick_chunk,
-    _sym_quadform, _interpret_mode, p_cols_at, _group_sum_rows)
-from rodeo_tpu.utils import mtt, mvdot
+    _tri_idx, _pack_tri, _sym_quadform, p_cols_at, _gain_cols_batched,
+    _static_scaled_qconst, fused_filter_batch, resolve_interrogation,
+    resolve_kalman_type, normalize_prior_pars, normalize_meas_var)
+from rodeo_tpu.ops.scan import scan_steps
 
 __all__ = ["fenrir_fused", "fenrir_fused_batch",
            "fenrir_fused_batch_grad"]
@@ -52,85 +49,45 @@ def fenrir_fused(key, ode_fun, ode_weight, ode_init,
                  interrogate,
                  prior_pars,
                  obs_data, obs_times, obs_weight, obs_var,
-                 ode_flat=None, jac_flat=None, chunk=None,
-                 interpret="auto", interrogation=None,
+                 ode_flat=None, jac_flat=None, interrogation=None,
                  kalman_type="standard", **params):
     r"""
-    Fenrir log-likelihood via fused Pallas kernels (Taylor-preconditioned,
-    float32).  Same value as :func:`rodeo_tpu.inference.fenrir.fenrir` up
-    to float32 rounding; see the module docstring for supported configs.
+    Fenrir log-likelihood of one parameter set on the fused path: the
+    lane-batched :func:`fenrir_fused_batch` with one lane (Taylor-
+    preconditioned, float32).  Same value as
+    :func:`rodeo_tpu.inference.fenrir.fenrir` up to float32 rounding; see
+    the module docstring for supported configs.
 
     The interrogation scheme follows the same validated contract as
     :func:`rodeo_tpu.ops.pallas_kalman.solve_mv_fused` (explicit
     ``interrogation=`` enum or a built-in ``interrogate=`` callable;
     ``"chkrebtii"`` requires ``key``).  ``kalman_type`` accepts
     ``"standard"`` and ``"sqrt"``/``"square-root"``: the likelihood value
-    is form-independent and both ride the same Joseph-form kernels (see
-    :func:`rodeo_tpu.ops.pallas_kalman.resolve_kalman_type`; parity vs
-    the f64 square-root reference is tested).
+    is form-independent (see
+    :func:`rodeo_tpu.ops.pallas_kalman.resolve_kalman_type`).
 
     Returns:
         (float): The log-likelihood value.
     """
-    from rodeo_tpu.ops.pallas_kalman import (
-        resolve_interrogation, resolve_kalman_type, normalize_prior_pars,
-        normalize_meas_var)
-    kalman_type = resolve_kalman_type(kalman_type)
-    prior_pars = normalize_prior_pars(kalman_type, prior_pars)
-    obs_var = normalize_meas_var(kalman_type, obs_var)
-    mode = resolve_interrogation(interrogate, interrogation, jac_flat)
+    del ode_fun
     if ode_flat is None:
-        raise ValueError("fenrir_fused requires a Mosaic-safe `ode_flat`")
-    n_block, n_bmeas, q = ode_weight.shape
-    n_obs, _, n_bobs, _ = obs_weight.shape
-    if n_bmeas != 1 or n_bobs != 1:
-        raise NotImplementedError(
-            "fenrir_fused requires n_bmeas == n_bobs == 1")
-    pairs, _ = _tri_idx(q)
-    n_tri = len(pairs)
-    dt = (t_max - t_min) / n_steps
-    t_vec = taylor_scale(dt, q, dtype=jnp.float32)
-    Qs, Rs = scale_prior(prior_pars, t_vec)
-    W_s = (ode_weight * t_vec[None, None, :])[:, 0, :]
-    x0_s = (ode_init / t_vec).astype(jnp.float32)
-    tgrid = t_min + (t_max - t_min) * (jnp.arange(n_steps) + 1) / n_steps
+        raise ValueError("fenrir_fused requires an `ode_flat` callable")
+    mode = resolve_interrogation(interrogate, interrogation, jac_flat)
     theta = params.get("theta")
-    theta_col = jnp.zeros((1, 1), jnp.float32) if theta is None \
-        else jnp.asarray(theta)[:, None]
+    thetas = jnp.zeros((1, 1), jnp.float32) if theta is None \
+        else jnp.asarray(theta)[None, :]
+    return fenrir_fused_batch(
+        thetas, ode_weight, ode_init[None], t_min, t_max, n_steps,
+        prior_pars, obs_data, obs_times, obs_weight, obs_var, ode_flat,
+        jac_flat, interrogation=mode, key=key, kalman_type=kalman_type)[0]
 
-    eps = None
-    if mode == "chkrebtii":
-        if key is None:
-            raise ValueError("interrogation='chkrebtii' requires a key")
-        eps = jax.random.normal(key, (n_steps, n_block, q), jnp.float32)
-    # 1. forward filter (scaled coordinates)
-    mf, pf, mp, pp = fused_filter(
-        ode_flat, jac_flat, n_steps, Qs, Rs, W_s, x0_s,
-        theta_col, tgrid, t_vec, chunk=chunk, interpret=interpret,
-        mode=mode, eps=eps)
 
-    # 2. backward-chain parameters for n = 0..N-1 (batched):
-    #    A_n = Pf_n Q' Pp_{n+1}^{-1}, b_n = mf_n - A_n mp_{n+1},
-    #    C_n = Pf_n - A_n Pp_{n+1} A_n'   (step 0 uses the exact init)
-    from rodeo_tpu.ops.linalg import inv_small
-    zero_p = jnp.zeros((1, n_block, n_tri), jnp.float32)
-    mf_full = jnp.concatenate([x0_s[None], mf[:-1]])      # steps 0..N-1
-    pf_full = jnp.concatenate([zero_p, pf[:-1]])
-    Pf = _unpack_tri(pf_full, q, pairs)
-    Pp = _unpack_tri(pp, q, pairs)                        # steps 1..N
-    A = (Pf @ mtt(Qs)) @ inv_small(Pp)
-    b = mf_full - mvdot(A, mp)
-    # Joseph-form backward variance (PSD-preserving in float32):
-    # C = (I - A Q) Pf (I - A Q)' + A R A'
-    eye_q = jnp.eye(q, dtype=Pf.dtype)
-    IAQ = eye_q - A @ Qs
-    C = IAQ @ Pf @ mtt(IAQ) + A @ Rs @ mtt(A)
-    C = 0.5 * (C + mtt(C))
-    A_flat = A.reshape(n_steps, n_block, q * q).astype(jnp.float32)
-    C_packed = _pack_tri(C, pairs).astype(jnp.float32)
-
-    # 3. observation model scattered onto the grid (masked dense form);
-    #    the obs weight acts on original coordinates -> scale by t_vec
+def _obs_grids(t_min, t_max, n_steps, t_vec, obs_data, obs_times,
+               obs_weight, obs_var):
+    """The observation model scattered onto the solver grid (shared
+    across lanes): scaled weights ``d``, data ``y``, variances ``om``
+    and the 0/1 mask, each with ``n_steps + 1`` rows."""
+    n_block, q = obs_weight.shape[1], obs_weight.shape[-1]
     sim_times = jnp.linspace(t_min, t_max, n_steps + 1)
     obs_ind = jnp.searchsorted(sim_times, obs_times)
     D_scaled = (obs_weight[:, :, 0, :]
@@ -144,240 +101,24 @@ def fenrir_fused(key, ode_fun, ode_weight, ode_init,
         obs_var[:, :, 0, :1].astype(jnp.float32))
     mask_grid = jnp.zeros((n_steps + 1, 1), jnp.float32)
     mask_grid = mask_grid.at[obs_ind, 0].set(1.0)
-
-    # 4. terminal update at n = N (batched XLA, masked)
-    mN, pN = mf[-1], pf[-1]
-    PN = _unpack_tri(pN[None], q, pairs)[0]
-    DN = d_grid[n_steps]
-    SN = jnp.sum(DN * (PN @ DN[..., None])[..., 0], axis=-1,
-                 keepdims=True) + om_grid[n_steps]
-    zN = y_grid[n_steps] - jnp.sum(DN * mN, axis=-1, keepdims=True)
-    maskN = mask_grid[n_steps, 0]
-    ld0 = maskN * (-0.5) * jnp.sum(zN * zN / SN + jnp.log(SN) + _LOG2PI)
-    KN = (PN @ DN[..., None])[..., 0] / SN * maskN
-    m_seed = mN + KN * zN
-    eye = jnp.broadcast_to(jnp.eye(q, dtype=jnp.float32), (n_block, q, q))
-    IKD = eye - KN[..., None] * DN[:, None, :]
-    P_seed = IKD @ PN @ mtt(IKD) + \
-        (KN[..., None] * om_grid[n_steps][..., None]) * KN[:, None, :]
-    p_seed = _pack_tri(0.5 * (P_seed + mtt(P_seed)), pairs)
-
-    # 5. sequential backward recursion in one Pallas kernel
-    if chunk is None:
-        chunk = _pick_chunk(n_steps)
-    n_chunks = n_steps // chunk
-    rev = lambda i: (n_chunks - 1 - i, 0, 0)
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    in_specs = [
-        pl.BlockSpec((chunk, n_block, q * q), rev,
-                     memory_space=pltpu.VMEM),            # A
-        pl.BlockSpec((chunk, n_block, q), rev,
-                     memory_space=pltpu.VMEM),            # b
-        pl.BlockSpec((chunk, n_block, n_tri), rev,
-                     memory_space=pltpu.VMEM),            # C
-        pl.BlockSpec((chunk, n_block, q), rev,
-                     memory_space=pltpu.VMEM),            # D (scaled)
-        pl.BlockSpec((chunk, n_block, 1), rev,
-                     memory_space=pltpu.VMEM),            # y
-        pl.BlockSpec((chunk, n_block, 1), rev,
-                     memory_space=pltpu.VMEM),            # Om
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),            # mask (full)
-        rep((n_block, q)),                                # seed mean
-        rep((n_block, n_tri)),                            # seed cov
-        rep((1, 1)),                                      # seed logdens
-    ]
-    kern = functools.partial(
-        _backward_kernel_global_mask, chunk, q, n_block, n_tri)
-    ld = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((1, 1), jnp.float32),
-        grid=(n_chunks,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, 1), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((n_block, q), jnp.float32),
-            pltpu.VMEM((n_block, n_tri), jnp.float32),
-            pltpu.SMEM((1, 1), jnp.float32),
-        ],
-        interpret=_interpret_mode(interpret),
-    )(A_flat, b.astype(jnp.float32), C_packed,
-      d_grid[:n_steps], y_grid[:n_steps], om_grid[:n_steps],
-      mask_grid[:n_steps],
-      m_seed.astype(jnp.float32), p_seed.astype(jnp.float32),
-      jnp.reshape(ld0, (1, 1)).astype(jnp.float32))
-    return ld[0, 0]
+    return d_grid, y_grid, om_grid, mask_grid
 
 
-def _backward_kernel_global_mask(chunk, q, n_block, n_tri,
-                                 A_ref, b_ref, C_ref, d_ref, y_ref, om_ref,
-                                 mask_ref,
-                                 m0_ref, p0_ref, ld0_ref,
-                                 ld_ref,
-                                 m_scr, p_scr, ld_scr):
-    """As :func:`_backward_kernel` but reading the obs mask from the full
-    (unchunked) array at the global row index."""
-    pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    n_chunks = pl.num_programs(0)
-
-    @pl.when(gi == 0)
-    def _seed():
-        m_scr[:] = m0_ref[:]
-        p_scr[:] = p0_ref[:]
-        ld_scr[0, 0] = ld0_ref[0, 0]
-
-    def body(k, carry):
-        r = chunk - 1 - k
-        m_cols = list(carry[:q])
-        p_cols = list(carry[q:q + n_tri])
-        ld = carry[q + n_tri]
-        A = [[A_ref[r, :, i * q + j:i * q + j + 1] for j in range(q)]
-             for i in range(q)]
-        mp = []
-        for i in range(q):
-            acc = b_ref[r, :, i:i + 1]
-            for j in range(q):
-                acc = acc + A[i][j] * m_cols[j]
-            mp.append(acc)
-        app = _sym_quadform(q, A, p_cols, where)
-        pp = [C_ref[r, :, kk:kk + 1] + app[kk] for kk in range(n_tri)]
-        D = [d_ref[r, :, j:j + 1] for j in range(q)]
-        PD = []
-        for i in range(q):
-            acc = None
-            for j in range(q):
-                term = p_cols_at(pp, where, i, j) * D[j]
-                acc = term if acc is None else acc + term
-            PD.append(acc)
-        S = om_ref[r, :, 0:1]
-        for i in range(q):
-            S = S + D[i] * PD[i]
-        z = y_ref[r, :, 0:1]
-        for i in range(q):
-            z = z - D[i] * mp[i]
-        # global row index: chunks are streamed in reverse order
-        mask = mask_ref[(n_chunks - 1 - gi) * chunk + r, 0]
-        inv_S = 1.0 / S
-        logp = -0.5 * jnp.sum(z * z * inv_S + jnp.log(S) + _LOG2PI)
-        ld = ld + mask * logp
-        K = [PD[i] * inv_S * mask for i in range(q)]
-        m_out = [mp[i] + K[i] * z for i in range(q)]
-        IKD = [[(1.0 if i == j else 0.0) - K[i] * D[j]
-                for j in range(q)] for i in range(q)]
-        pj = _sym_quadform(q, IKD, pp, where)
-        om = om_ref[r, :, 0:1]
-        p_out = [pj[kk] + K[i] * K[j] * om
-                 for kk, (i, j) in enumerate(pairs)]
-        return tuple(m_out) + tuple(p_out) + (ld,)
-
-    m_in = [m_scr[:, j:j + 1] for j in range(q)]
-    p_in = [p_scr[:, k:k + 1] for k in range(n_tri)]
-    out = jax.lax.fori_loop(
-        0, chunk, body, tuple(m_in) + tuple(p_in) + (ld_scr[0, 0],))
-    for j in range(q):
-        m_scr[:, j:j + 1] = out[j]
-    for k in range(n_tri):
-        p_scr[:, k:k + 1] = out[q + k]
-    ld_scr[0, 0] = out[q + n_tri]
-    ld_ref[:, :] = jnp.full((1, 1), out[q + n_tri], jnp.float32)
-
-
-# --- lane-batched fenrir -----------------------------------------------------------
-
-
-def _fenrir_backward_kernel_batch(chunk, q, n_block, n_tri, n_lane, fold,
-                                  A_ref, b_ref, C_ref, d_ref, y_ref, om_ref,
-                                  mask_ref,
-                                  m0_ref, p0_ref, ld0_ref,
-                                  ld_ref,
-                                  m_scr, p_scr, ld_scr):
-    """Lane-batched backward filter with masked scalar-obs updates; the
-    per-lane log-density row accumulates in VMEM scratch.  ``n_block`` /
-    ``n_lane`` are the (possibly lane-folded) tile dims; ``fold`` is the
-    fold factor, and the log-density row is ``(fold, n_lane)``."""
-    from rodeo_tpu.ops.pallas_kalman import (
-        _tri_idx, _sym_quadform, p_cols_at)
-    pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    n_chunks = pl.num_programs(0)
-
-    @pl.when(gi == 0)
-    def _seed():
-        for j in range(q):
-            m_scr[j] = m0_ref[j]
-        for k in range(n_tri):
-            p_scr[k] = p0_ref[k]
-        ld_scr[:] = ld0_ref[:]
-
-    def body(k, carry):
-        r = chunk - 1 - k
-        m_cols = list(carry[:q])
-        p_cols = list(carry[q:q + n_tri])
-        ld = carry[q + n_tri]
-        A = [[A_ref[r, i * q + j] for j in range(q)] for i in range(q)]
-        mp = []
-        for i in range(q):
-            acc = b_ref[r, i]
-            for j in range(q):
-                acc = acc + A[i][j] * m_cols[j]
-            mp.append(acc)
-        app = _sym_quadform(q, A, p_cols, where)
-        pp = [C_ref[r, kk] + app[kk] for kk in range(n_tri)]
-        D = [d_ref[r, j] for j in range(q)]                  # (nb, 1)
-        PD = []
-        for i in range(q):
-            acc = None
-            for j in range(q):
-                term = p_cols_at(pp, where, i, j) * D[j]
-                acc = term if acc is None else acc + term
-            PD.append(acc)
-        S = om_ref[r, 0]
-        for i in range(q):
-            S = S + D[i] * PD[i]
-        z = y_ref[r, 0]
-        for i in range(q):
-            z = z - D[i] * mp[i]
-        mask = mask_ref[(n_chunks - 1 - gi) * chunk + r, 0]
-        inv_S = 1.0 / S
-        logp = -0.5 * _group_sum_rows(
-            z * z * inv_S + jnp.log(S) + _LOG2PI,
-            n_block // fold, fold)                           # (fold, B)
-        ld = ld + mask * logp
-        K = [PD[i] * inv_S * mask for i in range(q)]
-        m_out = [mp[i] + K[i] * z for i in range(q)]
-        IKD = [[(1.0 if i == j else 0.0) - K[i] * D[j]
-                for j in range(q)] for i in range(q)]
-        pj = _sym_quadform(q, IKD, pp, where)
-        om = om_ref[r, 0]
-        p_out = [pj[kk] + K[i] * K[j] * om
-                 for kk, (i, j) in enumerate(pairs)]
-        return tuple(m_out) + tuple(p_out) + (ld,)
-
-    m_in = [m_scr[j] for j in range(q)]
-    p_in = [p_scr[k] for k in range(n_tri)]
-    out = jax.lax.fori_loop(
-        0, chunk, body, tuple(m_in) + tuple(p_in) + (ld_scr[:],))
-    for j in range(q):
-        m_scr[j] = out[j]
-    for k in range(n_tri):
-        p_scr[k] = out[q + k]
-    ld_scr[:] = out[q + n_tri]
-    ld_ref[:] = out[q + n_tri]
+def _step_lanes(grid, n_steps):
+    """``(n_steps + 1, nb, d)`` grid rows 0..N-1 -> ``(N, d, nb, 1)``
+    lane-broadcast step inputs."""
+    return jnp.transpose(grid[:n_steps], (0, 2, 1))[..., None]
 
 
 def fenrir_fused_batch(thetas, ode_weight, ode_inits,
                        t_min, t_max, n_steps,
                        prior_pars,
                        obs_data, obs_times, obs_weight, obs_var,
-                       ode_flat, jac_flat=None, chunk=None,
-                       interpret="auto", interrogation=None, key=None,
-                       kalman_type="standard"):
+                       ode_flat, jac_flat=None, interrogation=None,
+                       key=None, kalman_type="standard"):
     r"""
     Lane-batched fused fenrir: ``n_lane`` likelihood evaluations (parameter
-    candidates against the same observations) in one kernel pipeline.
+    candidates against the same observations) in one pipeline.
 
     Args:
         thetas (ndarray(n_lane, n_theta)): Per-lane parameters.
@@ -393,12 +134,6 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits,
     Returns:
         (ndarray(n_lane,)): Log-likelihood values.
     """
-    from rodeo_tpu.ops.pallas_kalman import (
-        fused_filter_batch, _tri_idx, _pick_chunk, _pick_chunk_batch,
-        _static_scaled_qconst, _gain_cols_batched, _interpret_mode,
-        p_cols_at, _pack_tri, resolve_interrogation, resolve_kalman_type,
-        normalize_prior_pars, normalize_meas_var)
-
     kalman_type = resolve_kalman_type(kalman_type)
     prior_pars = normalize_prior_pars(kalman_type, prior_pars)
     obs_var = normalize_meas_var(kalman_type, obs_var)
@@ -410,18 +145,10 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits,
         raise NotImplementedError(
             "fenrir_fused_batch requires n_bmeas == n_bobs == 1")
     pairs, where = _tri_idx(q)
-    n_tri = len(pairs)
     dt = (t_max - t_min) / n_steps
     t_vec = taylor_scale(dt, q, dtype=jnp.float32)
     Qs, Rs = scale_prior(prior_pars, t_vec)
     q_const = _static_scaled_qconst(prior_pars[0], dt, q)
-    if q_const is None:
-        raise NotImplementedError(
-            "fenrir_fused_batch requires a block-constant transition "
-            "available at trace time (a concrete block-constant "
-            "prior, e.g. ibm_init, built/cast OUTSIDE jit — an "
-            "astype/scale applied inside a jitted closure turns it "
-            "into a tracer)")
     W_s = (ode_weight * t_vec[None, None, :])[:, 0, :]
     x0_lanes = jnp.transpose(
         (ode_inits / t_vec).astype(jnp.float32), (2, 1, 0))   # (q, nb, B)
@@ -435,130 +162,46 @@ def fenrir_fused_batch(thetas, ode_weight, ode_inits,
         eps = jax.random.normal(
             key, (n_steps, q, n_block, n_lane), jnp.float32)
     # forward filter emitting the backward-chain (A, b, C) for steps
-    # 0..N-1 directly from the kernel (the separate XLA gains stage over
-    # the stored filter states was 44% of the whole pass at 512 lanes).
-    # The whole pipeline runs in the lane-FOLDED layout (dense tiles,
-    # see pallas_kalman._lane_fold_factor); the per-lane log-density
-    # row is (F, n_lane/F) and unfolds at return
-    from rodeo_tpu.ops.pallas_kalman import (
-        _lane_fold_factor, _unfold_lanes)
-    F = _lane_fold_factor(n_block, n_lane)
+    # 0..N-1 directly (no separate gains pass over stored filter states)
     A_k, b_k, C_k, m_last, p_last = fused_filter_batch(
         ode_flat, jac_flat, n_steps, Qs, Rs, W_s, x0_lanes,
-        theta_lanes, tgrid, t_vec, chunk=chunk, interpret=interpret,
-        raw_q_const=q_const, mode=mode, eps=eps, emit="gains", fold=F)
-    nbf, nlf = n_block * F, n_lane // F
+        theta_lanes, tgrid, t_vec, raw_q_const=q_const, mode=mode,
+        eps=eps, emit="gains")
 
-    # observation model on the grid (shared across lanes)
-    sim_times = jnp.linspace(t_min, t_max, n_steps + 1)
-    obs_ind = jnp.searchsorted(sim_times, obs_times)
-    D_scaled = (obs_weight[:, :, 0, :]
-                * t_vec.astype(obs_weight.dtype)).astype(jnp.float32)
-    d_grid = jnp.zeros((n_steps + 1, n_block, q), jnp.float32)
-    d_grid = d_grid.at[obs_ind].set(D_scaled)
-    y_grid = jnp.zeros((n_steps + 1, n_block, 1), jnp.float32)
-    y_grid = y_grid.at[obs_ind].set(obs_data[:, :, :1].astype(jnp.float32))
-    om_grid = jnp.ones((n_steps + 1, n_block, 1), jnp.float32)
-    om_grid = om_grid.at[obs_ind].set(
-        obs_var[:, :, 0, :1].astype(jnp.float32))
-    mask_grid = jnp.zeros((n_steps + 1, 1), jnp.float32)
-    mask_grid = mask_grid.at[obs_ind, 0].set(1.0)
-    # kernel layout: (N, q|1, nb*F, 1), lane-broadcast; the per-block
-    # rows repeat F times to match the folded tiles
-    rep_f = lambda a, ax: jnp.repeat(a, F, axis=ax) if F > 1 else a
-    d_k = rep_f(jnp.transpose(d_grid[:n_steps], (0, 2, 1))[..., None], 2)
-    y_k = rep_f(jnp.transpose(y_grid[:n_steps], (0, 2, 1))[..., None], 2)
-    om_k = rep_f(jnp.transpose(om_grid[:n_steps], (0, 2, 1))[..., None], 2)
-
-    # terminal masked update (column algebra, lane axis last; folded)
-    mN = [m_last[j] for j in range(q)]                        # (nbf, B/F)
-    pN = [p_last[k] for k in range(n_tri)]
-    DN = [rep_f(d_grid[n_steps, :, j, None], 0) for j in range(q)]
-    omN = rep_f(om_grid[n_steps, :, :1], 0)
-    yN = rep_f(y_grid[n_steps, :, :1], 0)
-    PD = []
-    for i in range(q):
-        acc = None
-        for j in range(q):
-            term = p_cols_at(pN, where, i, j) * DN[j]
-            acc = term if acc is None else acc + term
-        PD.append(acc)
-    SN = omN
-    for i in range(q):
-        SN = SN + DN[i] * PD[i]
-    zN = yN
-    for i in range(q):
-        zN = zN - DN[i] * mN[i]
-    maskN = mask_grid[n_steps, 0]
-    ld0 = maskN * (-0.5) * _group_sum_rows(
-        zN * zN / SN + jnp.log(SN) + _LOG2PI, n_block, F)
-    KN = [PD[i] / SN * maskN for i in range(q)]
-    m_seed = jnp.stack([mN[i] + KN[i] * zN for i in range(q)])
-    IKD = [[(1.0 if i == j else 0.0) - KN[i] * DN[j]
-            for j in range(q)] for i in range(q)]
-    pj = _sym_quadform(q, IKD, pN, where)
-    p_seed = jnp.stack([pj[kk] + KN[i] * KN[j] * omN
-                        for kk, (i, j) in enumerate(pairs)])
-
-    if chunk is None:
-        s_chunk = _pick_chunk_batch(n_steps, nlf, nbf, n_cols=24,
-                                    budget_bytes=12 * 2 ** 20)
-    else:
-        s_chunk = _pick_chunk(n_steps, target=chunk)
-    n_chunks = n_steps // s_chunk
-    kern = functools.partial(_fenrir_backward_kernel_batch, s_chunk, q,
-                             nbf, n_tri, nlf, F)
-    rev4 = lambda i: (n_chunks - 1 - i, 0, 0, 0)
-    blk = lambda d, lanes: pl.BlockSpec((s_chunk, d, nbf, lanes), rev4,
-                                        memory_space=pltpu.VMEM)
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    ld = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((F, nlf), jnp.float32),
-        grid=(n_chunks,),
-        in_specs=[blk(q * q, nlf), blk(q, nlf), blk(n_tri, nlf),
-                  blk(q, 1), blk(1, 1), blk(1, 1),
-                  pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-                  rep((q, nbf, nlf)), rep((n_tri, nbf, nlf)),
-                  rep((F, nlf))],
-        out_specs=pl.BlockSpec((F, nlf), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((q, nbf, nlf), jnp.float32),
-            pltpu.VMEM((n_tri, nbf, nlf), jnp.float32),
-            pltpu.VMEM((F, nlf), jnp.float32),
-        ],
-        interpret=_interpret_mode(interpret),
-    )(A_k, b_k, C_k, d_k, y_k, om_k, mask_grid[:n_steps],
-      m_seed.astype(jnp.float32), p_seed.astype(jnp.float32),
-      ld0.astype(jnp.float32))
-    return _unfold_lanes(ld, F)[0]
+    grids = _obs_grids(t_min, t_max, n_steps, t_vec, obs_data, obs_times,
+                       obs_weight, obs_var)
+    m_seed, p_seed, ld0 = _fenrir_terminal(q, where, pairs, *grids,
+                                           n_steps)(m_last, p_last)
+    d_grid, y_grid, om_grid, mask_grid = grids
+    step = _fenrir_backward_scan_step(q, where, pairs, 0)
+    (_, _, ld), _ = scan_steps(
+        step, (list(m_seed), list(p_seed), ld0),
+        (A_k, b_k, C_k, _step_lanes(d_grid, n_steps),
+         _step_lanes(y_grid, n_steps), _step_lanes(om_grid, n_steps),
+         mask_grid[:n_steps, 0]), reverse=True)
+    return ld[0]
 
 
-# --- gradients at fused speed (forward-mode tangent augmentation) -------------
+# --- gradients (forward-mode tangent augmentation) ---------------------------
 #
-# The MAP/HMC workload needs d loglik / d theta.  jax cannot autodiff
-# through Pallas kernels, but for n_theta ~ 3-7 parameters FORWARD mode
-# is the right shape anyway (n_theta directional derivatives = the full
-# gradient of a scalar), and the tangent recursions are obtained without
-# any hand-derived adjoint math: each kernel's per-step update is a PURE
-# jnp column function, and `jax.jvp` applied to it INSIDE the kernel body
-# traces the tangent arithmetic into the same Mosaic program (precedent:
-# the in-kernel Laplace derivatives of ops/pallas_daltonng.py).  The
-# between-kernel (XLA) stages are differentiated by plain `jax.jvp`.
+# The MAP/HMC workload needs d loglik / d theta.  For n_theta ~ 3-7
+# parameters FORWARD mode is the right shape (n_theta directional
+# derivatives = the full gradient of a scalar), and the tangent recursions
+# need no hand-derived adjoint math: each per-step update is a PURE jnp
+# column function, and `jax.jvp` applied to it inside the step carries the
+# tangents alongside the primal.  The stages between the recursions are
+# differentiated by plain `jax.jvp`.
 #
 # Cost: primal + n_tan tangents per step (the primal is re-traced per
 # tangent; XLA CSEs the duplicates), i.e. a small multiple of the fused
-# likelihood — versus the ~200x slower XLA scan gradient path.
-
+# likelihood.
 
 def _filter_step_pure(ode_flat, jac_flat, mode, q, where, pairs, q_const,
                       R_cols, W_cols, tv_cols, t_n):
-    """Pure per-step EK filter update in column form (tangent twin of the
-    `_filter_kernel_batch` body; kramer/rodeo only)."""
-    from rodeo_tpu.ops.pallas_kalman import _matvec, _acc, _sym_quadform
+    """Pure per-step EK filter update in column form (the
+    differentiable twin of :func:`rodeo_tpu.ops.pallas_kalman._filter_step`;
+    kramer/rodeo only)."""
+    from rodeo_tpu.ops.pallas_kalman import _matvec, _acc
 
     def step(m_cols, p_cols, th):
         m_cols, p_cols = list(m_cols), list(p_cols)
@@ -566,9 +209,9 @@ def _filter_step_pure(ode_flat, jac_flat, mode, q, where, pairs, q_const,
         pp_cols = _sym_quadform(q, q_const, p_cols, where)
         pp_cols = [pp_cols[k] + R_cols[k] for k in range(len(pp_cols))]
         x_cols = [mp_cols[j] * tv_cols[j] for j in range(q)]
-        f0 = ode_flat(x_cols, th, t_n)
-        jd_cols = jac_flat(x_cols, th, t_n) if mode == "kramer" \
-            else [None] * q
+        f0 = flat_call(ode_flat, x_cols, th, t_n)
+        jd_cols = flat_call(jac_flat, x_cols, th, t_n) \
+            if mode == "kramer" else [None] * q
         H_cols = []
         for j in range(q):
             if jd_cols[j] is None:
@@ -611,32 +254,18 @@ def _filter_step_pure(ode_flat, jac_flat, mode, q, where, pairs, q_const,
     return step
 
 
-def _filter_kernel_batch_tan(ode_flat, jac_flat, mode, n_tan, chunk, q,
-                             n_block, n_tri, n_lane, q_const, emit,
-                             *refs):
-    """Tangent-augmented lane-batched forward filter: carries the primal
-    state plus ``n_tan`` tangent copies; per step, one `jax.jvp` of the
-    pure update per tangent direction (basis vectors in theta-space).
-    Outputs stack primal + tangents on the d axis.
+def _filter_step_tan(ode_flat, jac_flat, mode, n_tan, q, q_const,
+                     R_cols, W_cols, tv_cols, th_val, emit):
+    """Tangent-augmented filter step: carries the primal state plus
+    ``n_tan`` tangent copies; per step, one `jax.jvp` of the pure update
+    per tangent direction (basis vectors in theta-space).  Outputs stack
+    primal + tangents on the d axis.
 
     ``emit="gains"`` emits the smoothing-gain chain ``(A, b, C)`` and its
-    tangents in-register (one extra `jax.jvp` of the pure gains map per
-    tangent) plus the final augmented filtered state, replacing the
-    per-tangent batched-XLA gains passes of the grad pipelines (n_aug
-    full HBM round-trips over the stored tangent filter states)."""
-    if emit == "gains":
-        (r_ref, w_ref, x0_ref, th_ref, tgrid_ref, tv_ref,
-         A_ref, b_ref, C_ref, mlast_ref, plast_ref, m_scr, p_scr) = refs
-    else:
-        (r_ref, w_ref, x0_ref, th_ref, tgrid_ref, tv_ref,
-         mf_ref, pf_ref, mp_ref, pp_ref, m_scr, p_scr) = refs
+    tangents (one extra `jax.jvp` of the pure gains map per tangent)."""
     pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    R_cols = [r_ref[:, k:k + 1] for k in range(n_tri)]
-    W_cols = [w_ref[:, j:j + 1] for j in range(q)]
-    tv_cols = [tv_ref[:, j:j + 1] for j in range(q)]
+    n_tri = len(pairs)
     n_aug = 1 + n_tan
-    th_val = th_ref[:]                                    # (n_theta, B)
     n_theta = th_val.shape[0]
     dths = []
     for k in range(n_tan):
@@ -644,39 +273,25 @@ def _filter_kernel_batch_tan(ode_flat, jac_flat, mode, n_tan, chunk, q,
                 else jnp.zeros_like(th_val[0:1]) for i in range(n_theta)]
         dths.append(jnp.concatenate(rows, axis=0))
 
-    @pl.when(gi == 0)
-    def _init():
-        for j in range(q):
-            m_scr[j] = x0_ref[j]
-        for d in range(n_aug * q):
-            if d >= q:
-                m_scr[d] = jnp.zeros((n_block, n_lane), jnp.float32)
-        for k in range(n_aug * n_tri):
-            p_scr[k] = jnp.zeros((n_block, n_lane), jnp.float32)
+    def gains_map(m_cols, p_cols, mp_cols, pp_cols):
+        return _gain_cols_batched(q, n_tri, q_const, R_cols,
+                                  list(m_cols), list(p_cols),
+                                  list(mp_cols), list(pp_cols))
 
-    if emit == "gains":
-        from rodeo_tpu.ops.pallas_kalman import _gain_cols_batched
-
-        def gains_map(m_cols, p_cols, mp_cols, pp_cols):
-            return _gain_cols_batched(q, n_tri, q_const, R_cols,
-                                      list(m_cols), list(p_cols),
-                                      list(mp_cols), list(pp_cols))
-
-    def body(r, carry):
-        t_n = tgrid_ref[gi * chunk + r, 0]
-        step = _filter_step_pure(ode_flat, jac_flat, mode, q, where,
+    def step(carry, t_n):
+        pure = _filter_step_pure(ode_flat, jac_flat, mode, q, where,
                                  pairs, q_const, R_cols, W_cols, tv_cols,
                                  t_n)
-        m_cols = tuple(carry[:q])
-        p_cols = tuple(carry[n_aug * q:n_aug * q + n_tri])
-        prim = step(m_cols, p_cols, th_val)
+        m_aug, p_aug = carry
+        m_cols = tuple(m_aug[:q])
+        p_cols = tuple(p_aug[:n_tri])
+        prim = pure(m_cols, p_cols, th_val)
         outs = [prim]
         tans_in = []
         for k in range(n_tan):
-            dm = tuple(carry[(1 + k) * q:(2 + k) * q])
-            dp = tuple(carry[n_aug * q + (1 + k) * n_tri:
-                             n_aug * q + (2 + k) * n_tri])
-            _, tan = jax.jvp(step, (m_cols, p_cols, th_val),
+            dm = tuple(m_aug[(1 + k) * q:(2 + k) * q])
+            dp = tuple(p_aug[(1 + k) * n_tri:(2 + k) * n_tri])
+            _, tan = jax.jvp(pure, (m_cols, p_cols, th_val),
                              (dm, dp, dths[k]))
             outs.append(tan)
             tans_in.append((dm, dp))
@@ -688,46 +303,87 @@ def _filter_kernel_batch_tan(ode_flat, jac_flat, mode, n_tan, chunk, q,
                 _, dG = jax.jvp(gains_map, gargs,
                                 (dm, dp, outs[1 + k][2], outs[1 + k][3]))
                 gouts.append(dG)
-            for d, (G, g, L) in enumerate(gouts):
-                for i in range(q):
-                    for j in range(q):
-                        A_ref[r, d * q * q + i * q + j] = G[i][j]
-                for i in range(q):
-                    b_ref[r, d * q + i] = g[i]
-                for k in range(n_tri):
-                    C_ref[r, d * n_tri + k] = L[k]
+            ys = ([G[i][j] for G, _, _ in gouts
+                   for i in range(q) for j in range(q)],
+                  [c for _, g, _ in gouts for c in g],
+                  [c for _, _, L in gouts for c in L])
         else:
-            for d, (mfc, pfc, mpc, ppc) in enumerate(outs):
-                for j in range(q):
-                    mf_ref[r, d * q + j] = mfc[j]
-                    mp_ref[r, d * q + j] = mpc[j]
-                for k in range(n_tri):
-                    pf_ref[r, d * n_tri + k] = pfc[k]
-                    pp_ref[r, d * n_tri + k] = ppc[k]
-        new_m = sum((list(o[0]) for o in outs), [])
-        new_p = sum((list(o[1]) for o in outs), [])
-        return tuple(new_m) + tuple(new_p)
+            ys = tuple([c for o in outs for c in o[s]] for s in range(4))
+        new_m = [c for o in outs for c in o[0]]
+        new_p = [c for o in outs for c in o[1]]
+        return (new_m, new_p), ys
 
-    m0 = [m_scr[d] for d in range(n_aug * q)]
-    p0 = [p_scr[k] for k in range(n_aug * n_tri)]
-    out = jax.lax.fori_loop(0, chunk, body, tuple(m0) + tuple(p0))
-    for d in range(n_aug * q):
-        m_scr[d] = out[d]
-    for k in range(n_aug * n_tri):
-        p_scr[k] = out[n_aug * q + k]
+    return step
+
+
+def fused_filter_batch_tan(ode_flat, jac_flat, mode, n_tan, n_steps,
+                           Qs, Rs, W_s, x0_lanes, theta_lanes, tgrid,
+                           t_vec, q_const, emit="states"):
+    """Tangent-augmented batch filter; outputs stack primal + tangents on
+    the d axis: (n_steps, (1+n_tan)*q | *n_tri, nb, B) for
+    ``emit="states"``; for ``emit="gains"`` the augmented smoothing-gain
+    chain (A (n_steps, (1+n_tan)*q*q, ...), b, C) plus the final
+    augmented filtered mean/cov."""
+    q, n_block, n_lane = x0_lanes.shape
+    pairs, _ = _tri_idx(q)
+    n_tri = len(pairs)
+    n_aug = 1 + n_tan
+    R_packed = _pack_tri(Rs, pairs).astype(jnp.float32)
+    W = W_s.astype(jnp.float32)
+    step = _filter_step_tan(
+        ode_flat, jac_flat, mode, n_tan, q, q_const,
+        [R_packed[:, k:k + 1] for k in range(n_tri)],
+        [W[:, j:j + 1] for j in range(q)],
+        [t_vec[j].astype(jnp.float32) for j in range(q)],
+        theta_lanes.astype(jnp.float32), emit)
+    zero = jnp.zeros((n_block, n_lane), jnp.float32)
+    carry0 = (list(x0_lanes.astype(jnp.float32)) + [zero] * (n_tan * q),
+              [zero] * (n_aug * n_tri))
+    (m_last, p_last), outs = scan_steps(step, carry0,
+                                        tgrid.astype(jnp.float32))
     if emit == "gains":
-        # constant-index blocks: the last grid step's write persists —
-        # the final augmented filtered state
-        for d in range(n_aug * q):
-            mlast_ref[d] = out[d]
-        for k in range(n_aug * n_tri):
-            plast_ref[k] = out[n_aug * q + k]
+        return outs + (jnp.stack(m_last), jnp.stack(p_last))
+    return outs
+
+
+def _fenrir_backward_scan_step(q, where, pairs, n_tan):
+    """Backward fenrir step for :func:`scan_steps`: the pure update of
+    :func:`_fenrir_backward_step_pure` on the primal, plus one `jax.jvp`
+    per tangent when ``n_tan > 0``.  The streamed ``(A, b, C)`` carry
+    their tangents stacked on the d axis; the carry is
+    ``(m, P, ld)`` with tangents stacked the same way (``ld`` rows)."""
+    n_tri = len(pairs)
+
+    def step(carry, x_t):
+        m_aug, p_aug, ld_aug = carry
+        A_t, b_t, C_t, D_t, y_t, om_t, mask = x_t
+        pure = _fenrir_backward_step_pure(q, where, pairs, mask)
+        D = tuple(D_t[j] for j in range(q))
+        y, om = y_t[0], om_t[0]
+        args = (tuple(m_aug[:q]), tuple(p_aug[:n_tri]), ld_aug[0:1],
+                tuple(A_t[j] for j in range(q * q)),
+                tuple(b_t[j] for j in range(q)),
+                tuple(C_t[k] for k in range(n_tri)), D, y, om)
+        outs = [pure(*args)]
+        zD = tuple(jnp.zeros_like(d) for d in D)
+        for k in range(n_tan):
+            tans = (tuple(m_aug[(1 + k) * q:(2 + k) * q]),
+                    tuple(p_aug[(1 + k) * n_tri:(2 + k) * n_tri]),
+                    ld_aug[1 + k:2 + k],
+                    tuple(A_t[(1 + k) * q * q + j] for j in range(q * q)),
+                    tuple(b_t[(1 + k) * q + j] for j in range(q)),
+                    tuple(C_t[(1 + k) * n_tri + kk] for kk in range(n_tri)),
+                    zD, jnp.zeros_like(y), jnp.zeros_like(om))
+            outs.append(jax.jvp(pure, args, tans)[1])
+        return ([c for o in outs for c in o[0]],
+                [c for o in outs for c in o[1]],
+                jnp.concatenate([o[2] for o in outs], axis=0)), ()
+
+    return step
 
 
 def _fenrir_backward_step_pure(q, where, pairs, mask):
-    """Pure per-step backward update + logdens accumulation (tangent twin
-    of the `_fenrir_backward_kernel_batch` body)."""
-    from rodeo_tpu.ops.pallas_kalman import _sym_quadform
+    """Pure per-step backward update + logdens accumulation."""
 
     def step(m_cols, p_cols, ld, A_cols, b_cols, C_cols, D, y, om):
         m_cols, p_cols = list(m_cols), list(p_cols)
@@ -769,170 +425,15 @@ def _fenrir_backward_step_pure(q, where, pairs, mask):
     return step
 
 
-def _fenrir_backward_kernel_batch_tan(n_tan, chunk, q, n_block, n_tri,
-                                      n_lane,
-                                      A_ref, b_ref, C_ref, d_ref, y_ref,
-                                      om_ref, mask_ref,
-                                      m0_ref, p0_ref, ld0_ref,
-                                      ld_ref,
-                                      m_scr, p_scr, ld_scr):
-    """Tangent-augmented backward filter: primal + tangent state and
-    log-density rows; streamed (A, b, C) carry their tangents stacked on
-    the d axis."""
-    pairs, where = _tri_idx(q)
-    gi = pl.program_id(0)
-    n_chunks = pl.num_programs(0)
-    n_aug = 1 + n_tan
-
-    @pl.when(gi == 0)
-    def _seed():
-        for d in range(n_aug * q):
-            m_scr[d] = m0_ref[d]
-        for k in range(n_aug * n_tri):
-            p_scr[k] = p0_ref[k]
-        ld_scr[:] = ld0_ref[:]
-
-    def body(kk, carry):
-        r = chunk - 1 - kk
-        mask = mask_ref[(n_chunks - 1 - gi) * chunk + r, 0]
-        step = _fenrir_backward_step_pure(q, where, pairs, mask)
-        m_cols = tuple(carry[:q])
-        p_cols = tuple(carry[n_aug * q:n_aug * q + n_tri])
-        ld = carry[n_aug * (q + n_tri)]
-        A_cols = tuple(A_ref[r, j] for j in range(q * q))
-        b_cols = tuple(b_ref[r, j] for j in range(q))
-        C_cols = tuple(C_ref[r, k] for k in range(n_tri))
-        D = [d_ref[r, j] for j in range(q)]
-        y = y_ref[r, 0]
-        om = om_ref[r, 0]
-        prim = step(m_cols, p_cols, ld, A_cols, b_cols, C_cols, D, y, om)
-        outs = [prim]
-        zD = tuple(jnp.zeros_like(D[j]) for j in range(q))
-        zy = jnp.zeros_like(y)
-        for k in range(n_tan):
-            dm = tuple(carry[(1 + k) * q:(2 + k) * q])
-            dp = tuple(carry[n_aug * q + (1 + k) * n_tri:
-                             n_aug * q + (2 + k) * n_tri])
-            dld = carry[n_aug * (q + n_tri) + 1 + k]
-            dA = tuple(A_ref[r, (1 + k) * q * q + j]
-                       for j in range(q * q))
-            db = tuple(b_ref[r, (1 + k) * q + j] for j in range(q))
-            dC = tuple(C_ref[r, (1 + k) * n_tri + kk2]
-                       for kk2 in range(n_tri))
-            _, tan = jax.jvp(
-                step,
-                (m_cols, p_cols, ld, A_cols, b_cols, C_cols,
-                 tuple(D), y, om),
-                (dm, dp, dld, dA, db, dC, zD, zy, jnp.zeros_like(om)))
-            outs.append(tan)
-        new_m = sum((list(o[0]) for o in outs), [])
-        new_p = sum((list(o[1]) for o in outs), [])
-        new_ld = [o[2] for o in outs]
-        return tuple(new_m) + tuple(new_p) + tuple(new_ld)
-
-    m0 = [m_scr[d] for d in range(n_aug * q)]
-    p0 = [p_scr[k] for k in range(n_aug * n_tri)]
-    l0 = [ld_scr[d:d + 1, :].reshape(1, n_lane) for d in range(n_aug)]
-    out = jax.lax.fori_loop(0, chunk, body,
-                            tuple(m0) + tuple(p0) + tuple(l0))
-    for d in range(n_aug * q):
-        m_scr[d] = out[d]
-    for k in range(n_aug * n_tri):
-        p_scr[k] = out[n_aug * q + k]
-    for d in range(n_aug):
-        ld_scr[d] = out[n_aug * (q + n_tri) + d][0]
-        ld_ref[d] = out[n_aug * (q + n_tri) + d][0]
-
-
-def fused_filter_batch_tan(ode_flat, jac_flat, mode, n_tan, n_steps,
-                           Qs, Rs, W_s, x0_lanes, theta_lanes, tgrid,
-                           t_vec, q_const, chunk=None, interpret="auto",
-                           emit="states"):
-    """Invoke the tangent-augmented batch filter; outputs stack primal +
-    tangents on the d axis: (n_steps, (1+n_tan)*q | *n_tri, nb, B) for
-    ``emit="states"``; for ``emit="gains"`` the augmented smoothing-gain
-    chain (A (n_steps, (1+n_tan)*q*q, ...), b, C) plus the final
-    augmented filtered mean/cov (see `_filter_kernel_batch_tan`)."""
-    from rodeo_tpu.ops.pallas_kalman import (
-        _pick_chunk_batch, _pick_chunk, _pack_tri)
-    q, n_block, n_lane = x0_lanes.shape
-    pairs, _ = _tri_idx(q)
-    n_tri = len(pairs)
-    n_aug = 1 + n_tan
-    if chunk is None:
-        # augmented blocks are (1+n_tan)x wider: shrink the chunk to stay
-        # inside the VMEM budget
-        chunk = _pick_chunk_batch(n_steps, n_lane * n_aug)
-    n_chunks = n_steps // chunk
-    kern = functools.partial(
-        _filter_kernel_batch_tan, ode_flat, jac_flat, mode, n_tan, chunk,
-        q, n_block, n_tri, n_lane, q_const, emit)
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    fwd4 = lambda i: (i, 0, 0, 0)
-    blk = lambda d: pl.BlockSpec((chunk, d, n_block, n_lane), fwd4,
-                                 memory_space=pltpu.VMEM)
-    if emit == "gains":
-        outs = [
-            jax.ShapeDtypeStruct((n_steps, n_aug * q * q, n_block, n_lane),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((n_steps, n_aug * q, n_block, n_lane),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((n_steps, n_aug * n_tri, n_block, n_lane),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((n_aug * q, n_block, n_lane), jnp.float32),
-            jax.ShapeDtypeStruct((n_aug * n_tri, n_block, n_lane),
-                                 jnp.float32),
-        ]
-        out_specs = [blk(n_aug * q * q), blk(n_aug * q), blk(n_aug * n_tri),
-                     rep((n_aug * q, n_block, n_lane)),
-                     rep((n_aug * n_tri, n_block, n_lane))]
-    else:
-        outs = [
-            jax.ShapeDtypeStruct((n_steps, n_aug * q, n_block, n_lane),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((n_steps, n_aug * n_tri, n_block, n_lane),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((n_steps, n_aug * q, n_block, n_lane),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((n_steps, n_aug * n_tri, n_block, n_lane),
-                                 jnp.float32),
-        ]
-        out_specs = [blk(n_aug * q), blk(n_aug * n_tri),
-                     blk(n_aug * q), blk(n_aug * n_tri)]
-    in_specs = [
-        rep((n_block, n_tri)),
-        rep((n_block, q)),
-        rep((q, n_block, n_lane)),
-        rep(theta_lanes.shape),
-        pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        rep((1, q)),
-    ]
-    R_packed = _pack_tri(Rs, pairs)
-    return pl.pallas_call(
-        kern, out_shape=outs, grid=(n_chunks,),
-        in_specs=in_specs, out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((n_aug * q, n_block, n_lane), jnp.float32),
-            pltpu.VMEM((n_aug * n_tri, n_block, n_lane), jnp.float32),
-        ],
-        interpret=_interpret_mode(interpret),
-    )(R_packed.astype(jnp.float32), W_s.astype(jnp.float32),
-      x0_lanes, theta_lanes, tgrid[:, None].astype(jnp.float32),
-      t_vec[None, :].astype(jnp.float32))
-
-
-def _fenrir_terminal(q, n_tri, where, pairs, d_grid, y_grid, om_grid,
-                     mask_grid, n_steps):
+def _fenrir_terminal(q, where, pairs, d_grid, y_grid, om_grid, mask_grid,
+                     n_steps):
     """Pure (jax-differentiable) terminal masked update on the final
-    filtered state — the backward-chain gains now come straight from the
-    forward kernel (emit="gains")."""
-    from rodeo_tpu.ops.pallas_kalman import _sym_quadform
+    filtered state ``(q | n_tri, n_block, n_lane)``: returns the backward
+    seed mean/cov and the step-``N`` log-density row ``(1, n_lane)``."""
 
     def f(m_last, p_last):
         mN = [m_last[j] for j in range(q)]
-        pN = [p_last[k] for k in range(n_tri)]
+        pN = [p_last[k] for k in range(len(pairs))]
         DN = [d_grid[n_steps, :, j, None] for j in range(q)]
         omN = om_grid[n_steps, :, :1]
         yN = y_grid[n_steps, :, :1]
@@ -968,12 +469,11 @@ def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits,
                             t_min, t_max, n_steps,
                             prior_pars,
                             obs_data, obs_times, obs_weight, obs_var,
-                            ode_flat, jac_flat=None, chunk=None,
-                            interpret="auto", kalman_type="standard"):
+                            ode_flat, jac_flat=None, kalman_type="standard"):
     r"""
     Lane-batched fenrir log-likelihood AND its theta-gradient via
-    forward-mode tangent-augmented fused kernels (see the section
-    comment above) — the MAP / gradient-MCMC workload at fused speed.
+    forward-mode tangent augmentation (see the section comment above) —
+    the MAP / gradient-MCMC workload at fused speed.
 
     ``ode_inits`` must not depend on theta (tangent seeded zero); models
     whose x0 is theta-dependent should fold that dependence into the
@@ -982,17 +482,11 @@ def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits,
     Returns:
         (tuple): ``loglik (n_lane,)``, ``grad (n_lane, n_theta)``.
     """
-    from rodeo_tpu.ops.pallas_kalman import (
-        resolve_kalman_type, normalize_prior_pars, normalize_meas_var)
     kalman_type = resolve_kalman_type(kalman_type)
     prior_pars = normalize_prior_pars(kalman_type, prior_pars)
     obs_var = normalize_meas_var(kalman_type, obs_var)
-    from rodeo_tpu.ops.pallas_kalman import (
-        _static_scaled_qconst, _pick_chunk_batch, _pick_chunk)
-
     n_lane, n_theta = thetas.shape
     n_tan = n_theta
-    n_aug = 1 + n_tan
     n_block, n_bmeas, q = ode_weight.shape
     n_obs, _, n_bobs, _ = obs_weight.shape
     if n_bmeas != 1 or n_bobs != 1:
@@ -1019,35 +513,19 @@ def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits,
     mode = "kramer" if jac_flat is not None else "rodeo"
 
     # 1. tangent-augmented forward filter, emitting the backward-chain
-    # gains (and their tangents) in-kernel — the previous XLA stage ran
-    # one full-array gains pass per tangent direction
+    # gains (and their tangents)
     A_aug, b_aug, C_aug, mlast_a, plast_a = fused_filter_batch_tan(
         ode_flat, jac_flat, mode, n_tan, n_steps, Qs, Rs, W_s, x0_lanes,
-        theta_lanes, tgrid, t_vec, q_const, chunk=chunk,
-        interpret=interpret, emit="gains")
+        theta_lanes, tgrid, t_vec, q_const, emit="gains")
 
     # 2. observation grids (theta-independent)
-    sim_times = jnp.linspace(t_min, t_max, n_steps + 1)
-    obs_ind = jnp.searchsorted(sim_times, obs_times)
-    D_scaled = (obs_weight[:, :, 0, :]
-                * t_vec.astype(obs_weight.dtype)).astype(jnp.float32)
-    d_grid = jnp.zeros((n_steps + 1, n_block, q), jnp.float32)
-    d_grid = d_grid.at[obs_ind].set(D_scaled)
-    y_grid = jnp.zeros((n_steps + 1, n_block, 1), jnp.float32)
-    y_grid = y_grid.at[obs_ind].set(obs_data[:, :, :1].astype(jnp.float32))
-    om_grid = jnp.ones((n_steps + 1, n_block, 1), jnp.float32)
-    om_grid = om_grid.at[obs_ind].set(
-        obs_var[:, :, 0, :1].astype(jnp.float32))
-    mask_grid = jnp.zeros((n_steps + 1, 1), jnp.float32)
-    mask_grid = mask_grid.at[obs_ind, 0].set(1.0)
-    d_k = jnp.transpose(d_grid[:n_steps], (0, 2, 1))[..., None]
-    y_k = jnp.transpose(y_grid[:n_steps], (0, 2, 1))[..., None]
-    om_k = jnp.transpose(om_grid[:n_steps], (0, 2, 1))[..., None]
+    grids = _obs_grids(t_min, t_max, n_steps, t_vec, obs_data, obs_times,
+                       obs_weight, obs_var)
+    d_grid, y_grid, om_grid, mask_grid = grids
 
     # 3. terminal masked update (tiny — final state only): primal + jvp
     # per tangent
-    f2t = _fenrir_terminal(q, n_tri, where, pairs, d_grid, y_grid,
-                           om_grid, mask_grid, n_steps)
+    f2t = _fenrir_terminal(q, where, pairs, *grids, n_steps)
     prims = (mlast_a[:q], plast_a[:n_tri])
     out2 = [f2t(*prims)]
     for k in range(n_tan):
@@ -1059,42 +537,12 @@ def fenrir_fused_batch_grad(thetas, ode_weight, ode_inits,
     p_seed = jnp.concatenate([o[1] for o in out2], axis=0)
     ld0 = jnp.concatenate([o[2] for o in out2], axis=0)
 
-    # 4. tangent-augmented backward kernel
-    if chunk is None:
-        s_chunk = _pick_chunk_batch(n_steps, n_lane * n_aug)
-    else:
-        s_chunk = _pick_chunk(n_steps, target=chunk)
-    n_chunks = n_steps // s_chunk
-    kern = functools.partial(
-        _fenrir_backward_kernel_batch_tan, n_tan, s_chunk, q, n_block,
-        n_tri, n_lane)
-    rev4 = lambda i: (n_chunks - 1 - i, 0, 0, 0)
-    blk = lambda d, lanes: pl.BlockSpec((s_chunk, d, n_block, lanes), rev4,
-                                        memory_space=pltpu.VMEM)
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    ld = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((n_aug, n_lane), jnp.float32),
-        grid=(n_chunks,),
-        in_specs=[blk(n_aug * q * q, n_lane), blk(n_aug * q, n_lane),
-                  blk(n_aug * n_tri, n_lane),
-                  blk(q, 1), blk(1, 1), blk(1, 1),
-                  pl.BlockSpec((n_steps, 1), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-                  rep((n_aug * q, n_block, n_lane)),
-                  rep((n_aug * n_tri, n_block, n_lane)),
-                  rep((n_aug, n_lane))],
-        out_specs=pl.BlockSpec((n_aug, n_lane), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((n_aug * q, n_block, n_lane), jnp.float32),
-            pltpu.VMEM((n_aug * n_tri, n_block, n_lane), jnp.float32),
-            pltpu.VMEM((n_aug, n_lane), jnp.float32),
-        ],
-        interpret=_interpret_mode(interpret),
-    )(A_aug.astype(jnp.float32), b_aug.astype(jnp.float32),
-      C_aug.astype(jnp.float32), d_k, y_k, om_k, mask_grid[:n_steps],
-      m_seed.astype(jnp.float32), p_seed.astype(jnp.float32),
-      ld0.astype(jnp.float32))
+    # 4. tangent-augmented backward recursion
+    step = _fenrir_backward_scan_step(q, where, pairs, n_tan)
+    (_, _, ld), _ = scan_steps(
+        step, (list(m_seed), list(p_seed), ld0),
+        (A_aug.astype(jnp.float32), b_aug.astype(jnp.float32),
+         C_aug.astype(jnp.float32), _step_lanes(d_grid, n_steps),
+         _step_lanes(y_grid, n_steps), _step_lanes(om_grid, n_steps),
+         mask_grid[:n_steps, 0]), reverse=True)
     return ld[0], jnp.transpose(ld[1:])

@@ -1,5 +1,5 @@
 r"""
-Fused Pallas MAGI log-density (lane-batched).
+Fused MAGI log-density (lane-batched).
 
 The MAGI filter (``rodeo_tpu/inference/magi.py``, reference
 ``src/rodeo/inference/magi.py:21-99``) conditions the Gauss-Markov prior
@@ -17,26 +17,22 @@ into constant-coefficient FMAs on ``(n_block, n_lane)`` column registers:
    the gain ``G = P_ia S^{-1}``.
 
 Because the active rows reset to the exact data each step, float32
-rounding cannot accumulate in the observed components — the kernel needs
-none of the k-composition machinery the solve smoother does.
+rounding cannot accumulate in the observed components.
 
 Lane axis = independent path/parameter candidates (MCMC chains over
 ``(U, \theta)``); per-lane prior noise scale enters as an optional
 ``sig2_lanes`` multiplier on the scaled process noise.
 """
-import functools
 import math
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from rodeo_tpu.ops.precond import taylor_scale, scale_prior
 from rodeo_tpu.ops.pallas_kalman import (
-    _tri_idx, _pack_tri, _pick_chunk, _pick_chunk_batch, _sym_quadform,
-    _sym_inv, _matvec, _interpret_mode, _static_scaled_qconst,
-    _group_sum_rows, _fold_lanes, _unfold_lanes, _lane_fold_factor)
+    _tri_idx, _pack_tri, _sym_quadform, _sym_inv, _matvec,
+    _static_scaled_qconst)
+from rodeo_tpu.ops.scan import scan_steps
 
 __all__ = ["magi_fused_batch", "magi_fused_batch_grad"]
 
@@ -58,54 +54,28 @@ def _sym_det(a, S_cols):
                 + s02 * (s01 * s12 - s11 * s02))
     raise NotImplementedError("magi_fused_batch supports n_active <= 3")
 
+def _magi_step(q, act, q_const, R_cols, emit):
+    """One MAGI filter step ``step((m, P, ld), x_t)`` with ``x_t`` the
+    step's active path rows ``(act, nb, B)``: predict, accumulate the
+    forecast log-density of the active block, condition exactly on it.
 
-def _magi_kernel_batch(chunk, q, act, n_block, n_tri, q_const, emit, fold,
-                       x_ref, r_ref, m0_ref,
-                       ld_ref, *rest):
-    """One grid step = ``chunk`` MAGI filter steps, state in VMEM scratch;
-    per-lane log-density row accumulates in scratch.
-
-    ``emit`` (compile-time): ``"ld"`` emits the log-density only;
-    ``"adjoint"`` additionally streams the per-step innovation ``z``,
-    packed forecast inverse ``S^{-1}`` and conditioning gain ``G`` — the
-    (data-independent-coefficient) inputs of the exact adjoint recursion
-    run by :func:`_magi_adjoint_kernel_batch`.
-    """
+    ``emit="adjoint"`` also emits the per-step innovation ``z``, packed
+    forecast inverse ``S^{-1}`` and (for ``q > act``) conditioning gain
+    ``G`` — the (data-independent-coefficient) inputs of the exact adjoint
+    recursion of :func:`_magi_adjoint_step`."""
     pairs, where = _tri_idx(q)
     pairs_a, where_a = _tri_idx(act)
-    n_tri_a = len(pairs_a)
-    if emit == "adjoint":
-        if q > act:
-            z_ref, s_ref, gG_ref = rest[:3]
-            m_scr, p_scr, ld_scr = rest[3:]
-        else:
-            z_ref, s_ref = rest[:2]
-            gG_ref = None
-            m_scr, p_scr, ld_scr = rest[2:]
-    else:
-        m_scr, p_scr, ld_scr = rest
-    gi = pl.program_id(0)
-    R_cols = [r_ref[k] for k in range(n_tri)]            # (nb, 1)
+    n_tri = len(pairs)
 
-    @pl.when(gi == 0)
-    def _seed():
-        for j in range(q):
-            m_scr[j] = m0_ref[j]
-        for k in range(n_tri):
-            p_scr[k] = jnp.zeros_like(m0_ref[0])
-        ld_scr[:] = jnp.zeros_like(ld_scr)
-
-    def body(r, carry):
-        m_cols = list(carry[:q])
-        p_cols = list(carry[q:q + n_tri])
-        ld = carry[q + n_tri]
+    def step(carry, x_t):
+        m_cols, p_cols, ld = carry
         mp = _matvec(q, q_const, m_cols)
         app = _sym_quadform(q, q_const, p_cols, where)
         pp = [app[k] + R_cols[k] for k in range(n_tri)]
         # forecast log-density of the active block (exact Gaussian;
         # reference magi.py:70-74 uses the non-masked logpdf)
         S_cols = [pp[where[(i, j)]] for (i, j) in pairs_a]
-        z = [x_ref[r, j] - mp[j] for j in range(act)]
+        z = [x_t[j] - mp[j] for j in range(act)]
         invS = _sym_inv(act, S_cols)
         quad = None
         for i in range(act):
@@ -113,9 +83,8 @@ def _magi_kernel_batch(chunk, q, act, n_block, n_tri, q_const, emit, fold,
                 term = z[i] * invS[where_a[(i, j)]] * z[j]
                 quad = term if quad is None else quad + term
         det = _sym_det(act, S_cols)
-        logp = -0.5 * _group_sum_rows(
-            quad + jnp.log(det) + act * _LOG2PI, n_block // fold, fold)
-        ld = ld + logp
+        ld = ld - 0.5 * jnp.sum(quad + jnp.log(det) + act * _LOG2PI,
+                                axis=0, keepdims=True)
         # exact-observation update: active rows collapse onto the data;
         # inactive block conditioned via G = P_ia S^{-1}
         G = [[None] * act for _ in range(q)]
@@ -126,9 +95,7 @@ def _magi_kernel_batch(chunk, q, act, n_block, n_tri, q_const, emit, fold,
                     term = pp[where[(i, b)]] * invS[where_a[(b, a)]]
                     acc = term if acc is None else acc + term
                 G[i][a] = acc
-        m_out = []
-        for j in range(act):
-            m_out.append(x_ref[r, j])
+        m_out = [x_t[j] for j in range(act)]
         for i in range(act, q):
             acc = mp[i]
             for a in range(act):
@@ -144,35 +111,22 @@ def _magi_kernel_batch(chunk, q, act, n_block, n_tri, q_const, emit, fold,
                 for a in range(act):
                     acc = acc - G[i][a] * pp[where[(a, j)]]
                 p_out.append(acc)
+        outs = ()
         if emit == "adjoint":
-            for j in range(act):
-                z_ref[r, j] = z[j]
-            for k in range(n_tri_a):
-                s_ref[r, k] = invS[k]
-            if gG_ref is not None:
-                for i in range(act, q):
-                    for a in range(act):
-                        gG_ref[r, (i - act) * act + a] = G[i][a]
-        return tuple(m_out) + tuple(p_out) + (ld,)
+            outs = (z, invS)
+            if q > act:
+                outs += ([G[i][a] for i in range(act, q)
+                          for a in range(act)],)
+        return (m_out, p_out, ld), outs
 
-    m_in = [m_scr[j] for j in range(q)]
-    p_in = [p_scr[k] for k in range(n_tri)]
-    out = jax.lax.fori_loop(
-        0, chunk, body, tuple(m_in) + tuple(p_in) + (ld_scr[:],))
-    for j in range(q):
-        m_scr[j] = out[j]
-    for k in range(n_tri):
-        p_scr[k] = out[q + k]
-    ld_scr[:] = out[q + n_tri]
-    ld_ref[:] = out[q + n_tri]
+    return step
 
 
 def magi_fused_batch(ode_data_subsets, ode_expand, n_active, prior_pars,
-                     dt, sig2_lanes=None, chunk=None, interpret="auto",
-                     **params):
+                     dt, sig2_lanes=None, **params):
     r"""
     Lane-batched fused MAGI log-density: ``n_lane`` independent paths
-    evaluated in one kernel pipeline.  Same value per lane as
+    evaluated in one pipeline.  Same value per lane as
     :func:`rodeo_tpu.ops.precond.magi_logdens` up to float32 rounding.
 
     Args:
@@ -198,7 +152,7 @@ def magi_fused_batch(ode_data_subsets, ode_expand, n_active, prior_pars,
     expand = jax.vmap(lambda u: ode_expand(u, **params))
     paths = expand(ode_data_subsets)                 # (B, N+1, nb, q)
     ld, _ = _magi_forward(paths, int(n_active), prior_pars, dt,
-                          sig2_lanes, chunk, interpret, emit="ld")
+                          sig2_lanes, emit="ld")
     return ld
 
 
@@ -217,23 +171,19 @@ def _magi_jacobian(dt, t_vec, n_steps, n_block, q, act):
         return (n_steps * n_block
                 * jnp.sum(jnp.log(t_vec[:act]))).astype(jnp.float32)
 
-
-def _magi_forward(paths, act, prior_pars, dt, sig2_lanes, chunk,
-                  interpret, emit):
-    """Shared fused-forward driver over pre-expanded paths.
+def _magi_forward(paths, act, prior_pars, dt, sig2_lanes, emit):
+    """Shared forward driver over pre-expanded paths.
 
     Returns ``(ld, aux)`` where ``aux`` is ``None`` for ``emit="ld"`` and
-    ``(z_k, s_k, gG_k, t_vec, s_chunk)`` for ``emit="adjoint"``
-    (``gG_k`` is ``None`` when ``q == act``)."""
+    ``(z_k, s_k, gG_k, t_vec)`` for ``emit="adjoint"`` (``gG_k`` is
+    ``None`` when ``q == act``)."""
     n_lane, n_tot, n_block, q = paths.shape
     n_steps = n_tot - 1
     if act > min(3, q):
         raise NotImplementedError(
             "magi_fused_batch supports n_active <= 3 (and <= n_deriv)")
     pairs, _ = _tri_idx(q)
-    pairs_a, _ = _tri_idx(act)
     n_tri = len(pairs)
-    n_tri_a = len(pairs_a)
     q_const = _static_scaled_qconst(prior_pars[0], dt, q)
     if q_const is None:
         raise NotImplementedError(
@@ -245,85 +195,34 @@ def _magi_forward(paths, act, prior_pars, dt, sig2_lanes, chunk,
     t_vec = taylor_scale(dt, q, dtype=jnp.float32)
     _, Rs = scale_prior(tuple(jnp.asarray(a, jnp.float32)
                               for a in prior_pars), t_vec)
-    # lane-fold (emit="ld" only — the adjoint streams stay unfolded);
-    # dense tiles where (n_block, n_lane) wastes 1 - nb/8 of every vreg
-    F = _lane_fold_factor(n_block, n_lane) if emit == "ld" else 1
-    nbf, nlf = n_block * F, n_lane // F
     R_k = jnp.transpose(_pack_tri(Rs, pairs))[..., None]   # (n_tri, nb, 1)
     if sig2_lanes is not None:
-        sig2 = jnp.asarray(sig2_lanes, jnp.float32)[None, None, :]
-        R_k = _fold_lanes(R_k * sig2, F)                   # (n_tri, nbf, .)
-    elif F > 1:
-        R_k = jnp.repeat(R_k, F, axis=1)
+        R_k = R_k * jnp.asarray(sig2_lanes, jnp.float32)[None, None, :]
     paths_s = (paths / t_vec).astype(jnp.float32)
-    # kernel layouts: x (N, act, nbf, B/F); seed mean (q, nbf, B/F)
-    x_k = _fold_lanes(
-        jnp.transpose(paths_s[:, 1:, :, :act], (1, 3, 2, 0)), F)
-    m0 = _fold_lanes(jnp.transpose(paths_s[:, 0], (2, 1, 0)), F)
-
-    if chunk is None:
-        s_chunk = _pick_chunk_batch(n_steps, nlf, nbf,
-                                    n_cols=6 if emit == "ld" else 24,
-                                    budget_bytes=12 * 2 ** 20)
-    else:
-        s_chunk = _pick_chunk(n_steps, target=chunk)
-    n_chunks = n_steps // s_chunk
-    n_lane_r = R_k.shape[-1]
-    kern = functools.partial(_magi_kernel_batch, s_chunk, q, act,
-                             nbf, n_tri, q_const, emit, F)
-    rep = lambda shape: pl.BlockSpec(
-        shape, lambda i: tuple([0] * len(shape)), memory_space=pltpu.VMEM)
-    blk = lambda d: pl.BlockSpec((s_chunk, d, nbf, nlf),
-                                 lambda i: (i, 0, 0, 0),
-                                 memory_space=pltpu.VMEM)
-    out_shape = [jax.ShapeDtypeStruct((F, nlf), jnp.float32)]
-    out_specs = [pl.BlockSpec((F, nlf), lambda i: (0, 0),
-                              memory_space=pltpu.VMEM)]
-    if emit == "adjoint":
-        out_shape.append(jax.ShapeDtypeStruct(
-            (n_steps, act, n_block, n_lane), jnp.float32))
-        out_specs.append(blk(act))
-        out_shape.append(jax.ShapeDtypeStruct(
-            (n_steps, n_tri_a, n_block, n_lane), jnp.float32))
-        out_specs.append(blk(n_tri_a))
-        if q > act:
-            out_shape.append(jax.ShapeDtypeStruct(
-                (n_steps, (q - act) * act, n_block, n_lane), jnp.float32))
-            out_specs.append(blk((q - act) * act))
-    outs = pl.pallas_call(
-        kern,
-        out_shape=out_shape,
-        grid=(n_chunks,),
-        in_specs=[
-            blk(act),
-            rep((n_tri, nbf, n_lane_r)),
-            rep((q, nbf, nlf)),
-        ],
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((q, nbf, nlf), jnp.float32),
-            pltpu.VMEM((n_tri, nbf, nlf), jnp.float32),
-            pltpu.VMEM((F, nlf), jnp.float32),
-        ],
-        interpret=_interpret_mode(interpret),
-    )(x_k, R_k, m0)
+    # layouts: x (N, act, nb, B); seed mean (q, nb, B)
+    x_k = jnp.transpose(paths_s[:, 1:, :, :act], (1, 3, 2, 0))
+    m0 = jnp.transpose(paths_s[:, 0], (2, 1, 0))
+    step = _magi_step(q, act, q_const, list(R_k.astype(jnp.float32)),
+                      emit)
+    carry0 = (list(m0), [jnp.zeros_like(m0[0])] * n_tri,
+              jnp.zeros((1, n_lane), jnp.float32))
+    (_, _, ld), outs = scan_steps(step, carry0, x_k)
     jacobian = _magi_jacobian(dt, t_vec, n_steps, n_block, q, act)
-    ld = _unfold_lanes(outs[0], F)[0] - jacobian
+    ld = ld[0] - jacobian
     if emit != "adjoint":
         return ld, None
-    z_k, s_k = outs[1], outs[2]
-    gG_k = outs[3] if q > act else None
-    return ld, (z_k, s_k, gG_k, t_vec, s_chunk)
+    gG_k = outs[2] if q > act else None
+    return ld, (outs[0], outs[1], gG_k, t_vec)
 
 
-def _magi_adjoint_kernel_batch(chunk, q, act, n_block, q_const,
-                               *refs):
-    """Exact adjoint of the MAGI filter log-density w.r.t. the (scaled)
-    path data.
+def _magi_adjoint_step(q, act, q_const):
+    """One step of the exact adjoint of the MAGI filter log-density
+    w.r.t. the (scaled) path data.
 
     The filter's covariance recursion never sees the data, so the adjoint
     is a linear backward recursion with the coefficients the forward pass
-    stored: per step ``r`` (with ``lam_r = dL/dm_r``, seeded ``lam_N = 0``)
+    emitted: per step ``r`` (with ``lam_r = dL/dm_r``, seeded
+    ``lam_N = 0``)
 
     .. code-block:: text
 
@@ -334,64 +233,40 @@ def _magi_adjoint_kernel_batch(chunk, q, act, n_block, q_const,
 
     and ``dL/dm_0 = lam_0`` covers the full ``q``-row seed state.
     """
-    pairs_a, where_a = _tri_idx(act)
-    n_tri_a = len(pairs_a)
-    has_g = q > act
-    if has_g:
-        z_ref, s_ref, gG_ref = refs[:3]
-        gx_ref, lam0_ref = refs[3:5]
-        lam_scr = refs[5]
-    else:
-        z_ref, s_ref = refs[:2]
-        gx_ref, lam0_ref = refs[2:4]
-        lam_scr = refs[4]
-    gi = pl.program_id(0)
-
-    @pl.when(gi == 0)
-    def _seed():
-        for j in range(q):
-            lam_scr[j] = jnp.zeros_like(z_ref[0, 0])
-
+    _, where_a = _tri_idx(act)
     qT = [[q_const[i][j] for i in range(q)] for j in range(q)]
 
-    def body(k, carry):
-        r = chunk - 1 - k
-        lam = list(carry)
-        z = [z_ref[r, j] for j in range(act)]
+    def step(lam, x_t):
+        z_t, s_t, gG_t = x_t
+        z = [z_t[j] for j in range(act)]
         v = []
         for a in range(act):
             acc = None
             for b in range(act):
-                term = s_ref[r, where_a[(a, b)]] * z[b]
+                term = s_t[where_a[(a, b)]] * z[b]
                 acc = term if acc is None else acc + term
             v.append(acc)
         zero = jnp.zeros_like(z[0])
         t = [zero] * act
-        if has_g:
+        if gG_t is not None:
             for a in range(act):
                 acc = None
                 for i in range(act, q):
-                    term = gG_ref[r, (i - act) * act + a] * lam[i]
+                    term = gG_t[(i - act) * act + a] * lam[i]
                     acc = term if acc is None else acc + term
                 t[a] = acc
-        for a in range(act):
-            gx_ref[r, a] = lam[a] + t[a] - v[a]
+        gx = [lam[a] + t[a] - v[a] for a in range(act)]
         u = [v[a] - t[a] for a in range(act)] + [lam[i]
                                                  for i in range(act, q)]
         lam_new = _matvec(q, qT, u)
-        return tuple(c if c is not None else zero for c in lam_new)
+        return [c if c is not None else zero for c in lam_new], (gx,)
 
-    lam_in = tuple(lam_scr[j] for j in range(q))
-    out = jax.lax.fori_loop(0, chunk, body, lam_in)
-    for j in range(q):
-        lam_scr[j] = out[j]
-        lam0_ref[j] = out[j]
+    return step
 
 
 def magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active,
                           prior_pars, dt, theta_lanes=None,
-                          sig2_lanes=None, chunk=None, interpret="auto",
-                          **params):
+                          sig2_lanes=None, **params):
     r"""
     Fused MAGI log-density **and its exact gradient w.r.t. the path**
     (and optionally per-lane parameters), lane-batched.
@@ -401,10 +276,10 @@ def magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active,
     other ``*_fused_batch_grad`` entries cannot scale here.  Instead this
     runs reverse mode natively: the MAGI filter is linear-Gaussian in the
     expanded path (covariances/gains never see the data), so its adjoint
-    is a constant-coefficient backward recursion.  The forward kernel
-    additionally streams per-step ``(z, S^{-1}, G)``; a second kernel
-    runs the adjoint; the chain rule through ``ode_expand`` (and the
-    Taylor scaling) is one ``jax.vjp``.  Cost: ~2x the value-only kernel.
+    is a constant-coefficient backward recursion.  The forward pass
+    additionally emits per-step ``(z, S^{-1}, G)``; a second pass runs
+    the adjoint; the chain rule through ``ode_expand`` (and the Taylor
+    scaling) is one ``jax.vjp``.  Cost: ~2x the value-only pass.
 
     Parity: matches ``jax.grad`` of
     :func:`rodeo_tpu.ops.precond.magi_logdens` (reference semantics,
@@ -438,39 +313,13 @@ def magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active,
     n_lane, n_tot, n_block, q = paths.shape
     n_steps = n_tot - 1
     ld, aux = _magi_forward(paths, act, prior_pars, dt, sig2_lanes,
-                            chunk, interpret, emit="adjoint")
-    z_k, s_k, gG_k, t_vec, s_chunk = aux
-    n_chunks = n_steps // s_chunk
-    pairs_a, _ = _tri_idx(act)
-    n_tri_a = len(pairs_a)
-    kern = functools.partial(_magi_adjoint_kernel_batch, s_chunk, q, act,
-                             n_block,
-                             _static_scaled_qconst(prior_pars[0], dt, q))
-    rev = lambda i: (n_chunks - 1 - i, 0, 0, 0)
-    blk = lambda d: pl.BlockSpec((s_chunk, d, n_block, n_lane), rev,
-                                 memory_space=pltpu.VMEM)
-    in_specs = [blk(act), blk(n_tri_a)]
-    args = [z_k, s_k]
-    if gG_k is not None:
-        in_specs.append(blk((q - act) * act))
-        args.append(gG_k)
-    gx, lam0 = pl.pallas_call(
-        kern,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_steps, act, n_block, n_lane),
-                                 jnp.float32),
-            jax.ShapeDtypeStruct((q, n_block, n_lane), jnp.float32),
-        ],
-        grid=(n_chunks,),
-        in_specs=in_specs,
-        out_specs=[
-            blk(act),
-            pl.BlockSpec((q, n_block, n_lane), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((q, n_block, n_lane), jnp.float32)],
-        interpret=_interpret_mode(interpret),
-    )(*args)
+                            emit="adjoint")
+    z_k, s_k, gG_k, t_vec = aux
+    step = _magi_adjoint_step(q, act,
+                              _static_scaled_qconst(prior_pars[0], dt, q))
+    lam0, (gx,) = scan_steps(step, [jnp.zeros_like(z_k[0, 0])] * q,
+                             (z_k, s_k, gG_k), reverse=True)
+    lam0 = jnp.stack(lam0)
     # assemble d ld / d paths (original coordinates) and pull back
     # through ode_expand;  paths_s = paths / t_vec  =>  divide again
     g_s = jnp.zeros((n_lane, n_tot, n_block, q), jnp.float32)

@@ -11,101 +11,42 @@ by a backward pass of per-step conditionals: given :math:`x_{n+1}`,
                       P^f_n - G_n P^p_{n+1} G_n'\right),
 
 with :math:`G_n = P^f_n Q' (P^p_{n+1})^{-1}` — the *same* gains as the RTS
-smoother.  TPU-first decomposition:
+smoother.  Decomposition:
 
-1. the forward filter runs as the fused lane-batched Pallas kernel
-   (:func:`rodeo_tpu.ops.pallas_kalman.fused_filter_batch`);
-2. gains :math:`(G_n, g_n, L_n)` vectorize over the whole time axis in
-   column layout (no dense trailing ``(q, q)`` dims — those tile-pad
-   catastrophically on TPU);
-3. the conditional covariance :math:`L_n` is Cholesky-factored in closed
+1. the lane-batched forward filter
+   (:func:`rodeo_tpu.ops.pallas_kalman.fused_filter_batch`) emits the
+   gains :math:`(G_n, g_n, L_n)` step by step;
+2. the conditional covariance :math:`L_n` is Cholesky-factored in closed
    form (column layout, any ``q``) and the per-step correlated noise
    :math:`\eta_n = L_n^{1/2} \epsilon_n` is precomputed batched — so the
    irreducibly sequential part is only the affine recursion
    :math:`x_n = c_n + G_n x_{n+1}` with :math:`c_n = g_n + \eta_n`;
-4. a Pallas kernel runs that recursion over the vector lanes: ~``q^2``
-   FMAs of ``(n_block, n_lane)`` tiles per step — a far shorter dependency
-   chain than the filter's, so the whole sampling pass adds little to the
-   filter time.
-
-Time axes that don't factor into nice chunks are front-padded with zero
-operators (processed last in the reverse-streamed grid, outputs sliced
-off), so any ``n_steps`` is supported without a chunk=1 degenerate grid.
+3. the shared backward mean recursion
+   (:func:`rodeo_tpu.ops.pallas_kalman.smoother_mean_recursion_batch_tan`
+   with no tangents) runs that recursion: ~``q^2`` FMAs of
+   ``(n_block, n_lane)`` tiles per step — a far shorter dependency chain
+   than the filter's.
 """
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from rodeo_tpu.ops.precond import taylor_scale, scale_prior
 from rodeo_tpu.ops.pallas_kalman import (
-    fused_filter_batch, _tri_idx, _pack_tri, _pick_chunk_batch,
-    _static_scaled_qconst, _gain_cols_batched, _interpret_mode,
-    _chol_cols, _chol_matvec)
+    fused_filter_batch, smoother_mean_recursion_batch_tan, _tri_idx,
+    _static_scaled_qconst, _chol_cols, _chol_matvec)
 
 __all__ = ["solve_sim_fused_batch"]
-
-
-def _sampler_kernel_batch(chunk, q, n_block, n_lane,
-                          c_ref, G_ref, xN_ref, xs_ref, x_scr):
-    """Backward affine sampling recursion ``x_n = c_n + G_n x_{n+1}``,
-    streamed in reverse chunk order with the path state in VMEM scratch."""
-    gi = pl.program_id(0)
-
-    @pl.when(gi == 0)
-    def _seed():
-        for j in range(q):
-            x_scr[j] = xN_ref[j]
-
-    def body(k, carry):
-        r = chunk - 1 - k
-        x_cols = list(carry)
-        out = []
-        for i in range(q):
-            acc = c_ref[r, i]
-            for j in range(q):
-                acc = acc + G_ref[r, i * q + j] * x_cols[j]
-            out.append(acc)
-        for j in range(q):
-            xs_ref[r, j] = out[j]
-        return tuple(out)
-
-    out = jax.lax.fori_loop(0, chunk, body,
-                            tuple(x_scr[j] for j in range(q)))
-    for j in range(q):
-        x_scr[j] = out[j]
-
-
-def _pad_front(arr, pad):
-    """Zero-pad ``pad`` rows at the front of the leading (time) axis."""
-    if pad == 0:
-        return arr
-    return jnp.concatenate(
-        [jnp.zeros((pad,) + arr.shape[1:], arr.dtype), arr])
-
-
-def _chunking(n_len, n_lane, chunk):
-    """(chunk, n_pad_rows) with front padding so chunk divides the axis."""
-    if chunk is None:
-        chunk = _pick_chunk_batch(n_len + 1, n_lane, budget_bytes=8 * 2**20)
-        chunk = max(chunk, min(n_len, 64))
-    chunk = min(chunk, n_len)
-    pad = (-n_len) % chunk
-    return chunk, pad
 
 
 def solve_sim_fused_batch(key, thetas, ode_weight, ode_inits,
                           t_min, t_max, n_steps,
                           prior_pars,
                           ode_flat, jac_flat=None,
-                          chunk=None, interpret="auto",
                           interrogation=None, kalman_type="standard"):
     r"""
     Lane-batched fused posterior path sampling: ``n_lane`` independent
-    draws (one per parameter candidate / MCMC chain) in one kernel
-    pipeline.  Distributionally matches
+    draws (one per parameter candidate / MCMC chain) in one pipeline.
+    Distributionally matches
     :func:`rodeo_tpu.ops.precond.solve_sim` per lane (standard filter,
     EK0/EK1 interrogations); the PRNG stream differs from the reference's
     per-step key-split tree.
@@ -131,7 +72,7 @@ def solve_sim_fused_batch(key, thetas, ode_weight, ode_inits,
     n_lane = thetas.shape[0]
     n_block, n_bmeas, q = ode_weight.shape
     if n_bmeas != 1:
-        raise NotImplementedError("fused kernels require n_bmeas == 1")
+        raise NotImplementedError("fused solvers require n_bmeas == 1")
     pairs, where = _tri_idx(q)
     n_tri = len(pairs)
     dt = (t_max - t_min) / n_steps
@@ -157,19 +98,18 @@ def solve_sim_fused_batch(key, thetas, ode_weight, ode_inits,
         eps_int = jax.random.normal(
             key_int, (n_steps, q, n_block, n_lane), jnp.float32)
     # forward filter emitting the conditional-draw gains for steps
-    # 1..N-1 straight from the kernel (entry 0 conditions onto the Dirac
-    # init and is not sampled); the final filtered state seeds the
-    # terminal draw
+    # 1..N-1 (entry 0 conditions onto the Dirac init and is not sampled);
+    # the final filtered state seeds the terminal draw
     A_k3, b_k3, C_k3, m_last, p_last = fused_filter_batch(
         ode_flat, jac_flat, n_steps, Qs, Rs, W_s, x0_lanes,
-        theta_lanes, tgrid, t_vec, chunk=None, interpret=interpret,
-        raw_q_const=q_const, mode=interrogation, eps=eps_int,
+        theta_lanes, tgrid, t_vec, raw_q_const=q_const,
+        mode=interrogation, eps=eps_int,
         emit="gains")
     G = [[A_k3[1:, i * q + j] for j in range(q)] for i in range(q)]
     g = [b_k3[1:, i] for i in range(q)]
     L = [C_k3[1:, k] for k in range(n_tri)]
 
-    # correlated per-step noise + terminal draw, all outside the kernel
+    # correlated per-step noise + terminal draw, batched
     n_len = n_steps - 1
     key_path, key_term = jax.random.split(key)
     eps = jax.random.normal(key_path, (n_len, q, n_block, n_lane),
@@ -184,31 +124,11 @@ def solve_sim_fused_batch(key, thetas, ode_weight, ode_inits,
     etaN = _chol_matvec(q, LN, [epsN[j] for j in range(q)])
     xN = jnp.stack([m_last[j] + etaN[j] for j in range(q)])   # (q, nb, B)
 
-    # stream the affine recursion right to left (front-padded chunking)
-    s_chunk, pad = _chunking(n_len, n_lane, chunk)
-    n_rows = n_len + pad
-    n_chunks = n_rows // s_chunk
-    c_k = _pad_front(jnp.stack(c_cols, axis=1).astype(jnp.float32), pad)
-    G_k = _pad_front(
-        jnp.stack([G[i][j] for i in range(q) for j in range(q)],
-                  axis=1).astype(jnp.float32), pad)
-    kern = functools.partial(_sampler_kernel_batch, s_chunk, q, n_block,
-                             n_lane)
-    rev4 = lambda i: (n_chunks - 1 - i, 0, 0, 0)
-    blk = lambda d: pl.BlockSpec((s_chunk, d, n_block, n_lane), rev4,
-                                 memory_space=pltpu.VMEM)
-    xs = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((n_rows, q, n_block, n_lane),
-                                       jnp.float32),
-        grid=(n_chunks,),
-        in_specs=[blk(q), blk(q * q),
-                  pl.BlockSpec((q, n_block, n_lane), lambda i: (0, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=blk(q),
-        scratch_shapes=[pltpu.VMEM((q, n_block, n_lane), jnp.float32)],
-        interpret=_interpret_mode(interpret),
-    )(c_k, G_k, xN)[pad:]
+    # the affine recursion right to left
+    c_k = jnp.stack(c_cols, axis=1).astype(jnp.float32)
+    G_k = jnp.stack([G[i][j] for i in range(q) for j in range(q)],
+                    axis=1).astype(jnp.float32)
+    xs = smoother_mean_recursion_batch_tan(c_k, G_k, xN, 0)
 
     # assemble (N+1, nb, q, B) in original coordinates, lanes last
     t_col = t_vec.astype(jnp.float32)[:, None]                # (q, 1)

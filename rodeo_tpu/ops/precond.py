@@ -4,7 +4,7 @@ Taylor-mode preconditioning of the solver state.
 The IBM prior over ``(x, x', ..., x^{(q)})`` with step ``dt`` has transition
 and noise matrices whose entries span :math:`dt^{\pm q}` — condition numbers
 of :math:`10^{12}` and beyond for fine grids, which overflows float32's
-precision and is why the unpreconditioned covariance filter NaNs on TPU.
+precision and is why the unpreconditioned covariance filter NaNs in f32.
 
 Changing coordinates to :math:`\tilde x = T^{-1} x` with the diagonal
 
@@ -18,7 +18,7 @@ by f32-first probabilistic-numerics codes.)
 
 The wrappers below run the existing solvers entirely in scaled coordinates
 (diagonal rescaling of inputs, interrogation adapter, diagonal unscaling of
-outputs), so the covariance-form filter — the fastest form on TPU — becomes
+outputs), so the covariance-form filter — the fastest form — becomes
 numerically sound in float32.  Quadratic forms like the rodeo interrogation
 variance :math:`W \Sigma W'` are invariant under the transform.
 """
@@ -42,7 +42,7 @@ def taylor_scale(dt, n_deriv, dtype=None):
 
     Built from exact trace-time factorials and iterated ``dt``
     multiplications — not ``pow``/``gammaln`` device transcendentals,
-    whose float32 approximations on TPU perturb the scaling by ~1e-4
+    whose float32 approximations on a device can perturb the scaling by ~1e-4
     relative (see :mod:`rodeo_tpu.prior.ibm`).  Jittable in ``dt``.
 
     Returns:
@@ -149,7 +149,7 @@ def solve_mv(key, ode_fun, ode_weight, ode_init,
     r"""
     Preconditioned :func:`rodeo_tpu.solve.solve_mv`: identical posterior (up
     to fp), but the filter/smoother run in Taylor-scaled coordinates — use
-    this on TPU in float32 (the covariance form NaNs otherwise once the
+    this in float32 (the covariance form NaNs otherwise once the
     prior's dynamic range exceeds ~1e7).
 
     Same signature and return contract as :func:`rodeo_tpu.solve.solve_mv`.
@@ -215,7 +215,7 @@ def fenrir(key, ode_fun, ode_weight, ode_init,
     The observation model transforms as :math:`\tilde D = D T`; the
     log-density of the Y-space observations is invariant under the state
     coordinate change, so this returns the same value as the plain
-    implementation — but float32-stable on TPU.  ``temporal="parallel"``
+    implementation — but float32-stable.  ``temporal="parallel"``
     runs the backward pass as a parallel-in-time associative scan.
     """
     from rodeo_tpu.inference import fenrir as _fenrir_fn

@@ -2,14 +2,14 @@ r"""
 Parallel-in-time Kalman filtering and smoothing via ``jax.lax.associative_scan``.
 
 The reference advances the solver time grid with a strictly sequential
-``jax.lax.scan`` (``/root/reference/src/rodeo/solve.py:112,291``) — an
-:math:`O(N)` span of tiny :math:`q \times q` operations that leaves a TPU
-latency-bound.  Both the Kalman filter and the RTS smoother are associative
+``jax.lax.scan`` (upstream ``rodeo/solve.py:112,291``) — an
+:math:`O(N)` span of tiny :math:`q \times q` operations that leaves an
+accelerator latency-bound.  Both the Kalman filter and the RTS smoother are
+associative
 recursions (Särkkä & García-Fernández 2021, *Temporal parallelization of
 Bayesian smoothers*), so they can instead run as prefix/suffix combines with
 :math:`O(\log N)` sequential depth, where each combine level is one large
-batched ``(N, n_block, q, q)`` matmul/solve — exactly the shape the MXU
-wants.
+batched ``(N, n_block, q, q)`` matmul/solve.
 
 Three entry points:
 

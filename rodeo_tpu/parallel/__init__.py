@@ -1,6 +1,6 @@
 r"""
 Multi-device scaling utilities: device-mesh construction and sharded
-vmapped MCMC chains / parameter sweeps (pure data parallelism over ICI —
+vmapped MCMC chains / parameter sweeps (pure data parallelism over NVLink —
 the natural scale-out axes for this library, see SURVEY.md §5).
 """
 from rodeo_tpu.parallel.mesh import (

@@ -4,9 +4,9 @@ Sharded vmapped MCMC chains and parameter sweeps.
 The pseudo-marginal MCMC stack (:mod:`rodeo_tpu.inference.pseudo_marginal`)
 re-enters a full ODE solve per step per chain; scaling it means running many
 chains at once.  Chains are vmapped into one XLA program (so per-block
-:math:`q \times q` algebra batches into MXU-sized ops) and the chain axis is
+:math:`q \times q` algebra batches into large ops) and the chain axis is
 sharded over a device mesh with ``jax.jit`` + ``NamedSharding`` — pure data
-parallelism over ICI, zero cross-chip collectives inside a step.
+parallelism over NVLink, zero cross-chip collectives inside a step.
 
 These helpers realize BASELINE.json config #5 ("pseudo_marginal MCMC +
 magi Markov-prior inference, vmapped chains").
@@ -103,7 +103,7 @@ def make_run_chains(alg, n_samples, mesh=None, axis_name="chain"):
 def run_chains_fused(loglik_fn, init_positions, key, n_samples, rw_scale,
                      ode_weight, ode_init, t_min, t_max, n_steps,
                      prior_pars, ode_flat, jac_flat=None,
-                     position_to_init=None, chunk=None, interpret="auto"):
+                     position_to_init=None):
     r"""
     Pseudo-marginal random-walk MCMC with every chain riding the fused
     lane-batched sampler: all ``n_lane`` chains advance in lockstep, and
@@ -147,16 +147,14 @@ def run_chains_fused(loglik_fn, init_positions, key, n_samples, rw_scale,
         n_samples=n_samples, rw_scale=rw_scale, ode_weight=ode_weight,
         ode_init=ode_init, t_min=t_min, t_max=t_max, n_steps=n_steps,
         prior_pars=prior_pars, ode_flat=ode_flat, jac_flat=jac_flat,
-        position_to_init=position_to_init, chunk=chunk,
-        interpret=interpret)
+        position_to_init=position_to_init)
     return runner(init_positions, key)
 
 
 def make_chain_runner(loglik_fn, n_lane, n_samples, rw_scale,
                       ode_weight, ode_init, t_min, t_max, n_steps,
                       prior_pars, ode_flat, jac_flat=None,
-                      position_to_init=None, chunk=None,
-                      interpret="auto", interrogation=None):
+                      position_to_init=None, interrogation=None):
     r"""
     Build the jitted lockstep-MCMC runner used by :func:`run_chains_fused`
     (``runner(init_positions, key) -> (positions, logdens, accept)``).
@@ -180,7 +178,7 @@ def make_chain_runner(loglik_fn, n_lane, n_samples, rw_scale,
             key=key, thetas=positions, ode_weight=ode_weight,
             ode_inits=inits_for(positions), t_min=t_min, t_max=t_max,
             n_steps=n_steps, prior_pars=prior_pars, ode_flat=ode_flat,
-            jac_flat=jac_flat, chunk=chunk, interpret=interpret,
+            jac_flat=jac_flat,
             interrogation=interrogation)
         return loglik_fn(positions, paths)
 
@@ -531,8 +529,7 @@ def run_chains_mala_fused(init_positions, key, n_samples, step_size,
                           ode_weight, ode_init, t_min, t_max, n_steps,
                           prior_pars, obs_data, obs_times, obs_weight,
                           obs_var, ode_flat, jac_flat=None,
-                          logprior_grad_fn=None, likelihood="fenrir",
-                          chunk=None, interpret="auto"):
+                          logprior_grad_fn=None, likelihood="fenrir"):
     r"""
     Lockstep MALA over the FENRIR (or DALTON) marginal likelihood, every
     chain riding ONE tangent-augmented fused kernel pipeline per step.
@@ -553,8 +550,7 @@ def run_chains_mala_fused(init_positions, key, n_samples, step_size,
     logpost_grad_fn = _fused_theta_logpost_grad(
         likelihood, init_positions.shape[0], ode_weight, ode_init,
         t_min, t_max, n_steps, prior_pars, obs_data, obs_times,
-        obs_weight, obs_var, ode_flat, jac_flat, logprior_grad_fn,
-        chunk, interpret)
+        obs_weight, obs_var, ode_flat, jac_flat, logprior_grad_fn)
     runner = make_mala_runner(logpost_grad_fn, init_positions.shape[0],
                               n_samples, step_size)
     return runner(init_positions, key)
@@ -565,7 +561,7 @@ def run_chains_hmc_fused(init_positions, key, n_samples, step_size,
                          prior_pars, obs_data, obs_times, obs_weight,
                          obs_var, ode_flat, jac_flat=None,
                          logprior_grad_fn=None, likelihood="fenrir",
-                         n_leapfrog=10, chunk=None, interpret="auto"):
+                         n_leapfrog=10):
     r"""
     Lockstep HMC over the FENRIR (or DALTON) marginal likelihood: each
     of the ``n_leapfrog`` leapfrog steps per proposal costs ONE
@@ -577,8 +573,7 @@ def run_chains_hmc_fused(init_positions, key, n_samples, step_size,
     logpost_grad_fn = _fused_theta_logpost_grad(
         likelihood, init_positions.shape[0], ode_weight, ode_init,
         t_min, t_max, n_steps, prior_pars, obs_data, obs_times,
-        obs_weight, obs_var, ode_flat, jac_flat, logprior_grad_fn,
-        chunk, interpret)
+        obs_weight, obs_var, ode_flat, jac_flat, logprior_grad_fn)
     runner = make_hmc_runner(logpost_grad_fn, init_positions.shape[0],
                              n_samples, step_size, n_leapfrog=n_leapfrog)
     return runner(init_positions, key)
@@ -587,8 +582,7 @@ def run_chains_hmc_fused(init_positions, key, n_samples, step_size,
 def _fused_theta_logpost_grad(likelihood, n_lane, ode_weight, ode_init,
                               t_min, t_max, n_steps, prior_pars, obs_data,
                               obs_times, obs_weight, obs_var, ode_flat,
-                              jac_flat, logprior_grad_fn, chunk,
-                              interpret):
+                              jac_flat, logprior_grad_fn):
     """Shared ``logpost_grad_fn`` closure over the fused fenrir/dalton
     value+gradient kernels (used by the MALA and HMC wrappers)."""
     from rodeo_tpu.ops.pallas_fenrir import fenrir_fused_batch_grad
@@ -608,7 +602,7 @@ def _fused_theta_logpost_grad(likelihood, n_lane, ode_weight, ode_init,
             t_min=t_min, t_max=t_max, n_steps=n_steps,
             prior_pars=prior_pars, obs_data=obs_data, obs_times=obs_times,
             obs_weight=obs_weight, obs_var=obs_var, ode_flat=ode_flat,
-            jac_flat=jac_flat, chunk=chunk, interpret=interpret)
+            jac_flat=jac_flat)
         if logprior_grad_fn is not None:
             lp, gp = logprior_grad_fn(positions)
             ll, g = ll + lp, g + gp
@@ -620,8 +614,7 @@ def _fused_theta_logpost_grad(likelihood, n_lane, ode_weight, ode_init,
 def run_chains_mala_magi(init_subsets, key, n_samples, step_size,
                          ode_expand, n_active, prior_pars, dt,
                          theta_lanes=None, sig2_lanes=None,
-                         extra_grad_fn=None, chunk=None,
-                         interpret="auto", **params):
+                         extra_grad_fn=None, **params):
     r"""
     Lockstep MALA over the MAGI **path posterior**: the MCMC position is
     the latent path subset ``U`` itself (optionally jointly with a
@@ -657,7 +650,7 @@ def run_chains_mala_magi(init_subsets, key, n_samples, step_size,
     """
     logpost_grad_fn = _magi_logpost_grad(
         theta_lanes is not None, ode_expand, n_active, prior_pars, dt,
-        sig2_lanes, extra_grad_fn, chunk, interpret, params)
+        sig2_lanes, extra_grad_fn, params)
     position0 = (init_subsets if theta_lanes is None
                  else (init_subsets, theta_lanes))
     runner = make_mala_runner(logpost_grad_fn, init_subsets.shape[0],
@@ -668,8 +661,7 @@ def run_chains_mala_magi(init_subsets, key, n_samples, step_size,
 def run_chains_hmc_magi(init_subsets, key, n_samples, step_size,
                         ode_expand, n_active, prior_pars, dt,
                         theta_lanes=None, sig2_lanes=None,
-                        extra_grad_fn=None, n_leapfrog=10, chunk=None,
-                        interpret="auto", **params):
+                        extra_grad_fn=None, n_leapfrog=10, **params):
     r"""
     Lockstep HMC over the MAGI **path posterior** — the position is the
     thousands-dimensional latent path subset ``U`` (optionally jointly
@@ -685,7 +677,7 @@ def run_chains_hmc_magi(init_subsets, key, n_samples, step_size,
     """
     logpost_grad_fn = _magi_logpost_grad(
         theta_lanes is not None, ode_expand, n_active, prior_pars, dt,
-        sig2_lanes, extra_grad_fn, chunk, interpret, params)
+        sig2_lanes, extra_grad_fn, params)
     position0 = (init_subsets if theta_lanes is None
                  else (init_subsets, theta_lanes))
     runner = make_hmc_runner(logpost_grad_fn, init_subsets.shape[0],
@@ -732,8 +724,7 @@ def run_chains_magi_gibbs(init_subsets, key, n_sweeps, step_size,
                           ode_expand, n_active, prior_pars, dt,
                           sig2_init, sig2_prior_shape=2.0,
                           sig2_prior_rate=1.0, n_inner=5,
-                          extra_grad_fn=None, chunk=None,
-                          interpret="auto", **params):
+                          extra_grad_fn=None, **params):
     r"""
     Joint MAGI inference over (path, :math:`\sigma^2`): each sweep runs
     ``n_inner`` lockstep MALA steps on the latent path ``U`` given the
@@ -785,13 +776,11 @@ def run_chains_magi_gibbs(init_subsets, key, n_sweeps, step_size,
 
     def ld_at(u, sig2):
         return magi_fused_batch(
-            u, ode_expand, n_active, prior_pars, dt, sig2_lanes=sig2,
-            chunk=chunk, interpret=interpret, **params)
+            u, ode_expand, n_active, prior_pars, dt, sig2_lanes=sig2, **params)
 
     def logpost_grad(u, sig2):
         ld, g_u = magi_fused_batch_grad(
-            u, ode_expand, n_active, prior_pars, dt, sig2_lanes=sig2,
-            chunk=chunk, interpret=interpret, **params)
+            u, ode_expand, n_active, prior_pars, dt, sig2_lanes=sig2, **params)
         if extra_grad_fn is not None:
             lp, gp = extra_grad_fn(u)
             ld, g_u = ld + lp, g_u + gp
@@ -856,7 +845,7 @@ def run_chains_magi_gibbs(init_subsets, key, n_sweeps, step_size,
 
 
 def _magi_logpost_grad(joint_theta, ode_expand, n_active, prior_pars, dt,
-                       sig2_lanes, extra_grad_fn, chunk, interpret,
+                       sig2_lanes, extra_grad_fn,
                        params):
     """Shared path-posterior ``logpost_grad_fn`` closure over the MAGI
     forward+adjoint kernels (used by the MALA and HMC wrappers)."""
@@ -866,15 +855,14 @@ def _magi_logpost_grad(joint_theta, ode_expand, n_active, prior_pars, dt,
         if not joint_theta:
             ld, g_u = magi_fused_batch_grad(
                 position, ode_expand, n_active, prior_pars, dt,
-                sig2_lanes=sig2_lanes, chunk=chunk, interpret=interpret,
+                sig2_lanes=sig2_lanes,
                 **params)
             grad = g_u
         else:
             u, th = position
             ld, g_u, g_th = magi_fused_batch_grad(
                 u, ode_expand, n_active, prior_pars, dt,
-                theta_lanes=th, sig2_lanes=sig2_lanes, chunk=chunk,
-                interpret=interpret, **params)
+                theta_lanes=th, sig2_lanes=sig2_lanes, **params)
             grad = (g_u, g_th)
         if extra_grad_fn is not None:
             lp, gp = extra_grad_fn(position)

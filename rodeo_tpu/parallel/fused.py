@@ -5,7 +5,7 @@ The lane axis of the fused Pallas pipelines (parameter candidates / MCMC
 chains) is embarrassingly parallel, so it shards over a 1-D device mesh
 with ``shard_map``: each chip runs the SAME fused kernel pipeline on its
 lane group, with zero collectives — aggregate throughput scales linearly
-over ICI.  All other operands are replicated.
+over NVLink.  All other operands are replicated.
 
 These wrappers keep the single-chip calling conventions (lane axis first
 in ``thetas``/``ode_inits``, LAST in outputs); the lane count must divide
@@ -56,7 +56,6 @@ def sharded_solve_mv_fused_batch(thetas, ode_weight, ode_inits,
                                  t_min, t_max, n_steps, prior_pars,
                                  ode_flat, jac_flat=None,
                                  mesh=None, axis_name="batch",
-                                 chunk=None, interpret="auto",
                                  kalman_type="standard"):
     r"""
     :func:`rodeo_tpu.ops.pallas_kalman.solve_mv_fused_batch` with the lane
@@ -75,7 +74,6 @@ def sharded_solve_mv_fused_batch(thetas, ode_weight, ode_inits,
             thetas=th, ode_weight=W, ode_inits=x0,
             t_min=t_min, t_max=t_max, n_steps=n_steps,
             prior_pars=prior_pars, ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret,
             kalman_type=kalman_type)
 
     return _lane_sharded(local, mesh, axis_name, 2, 3)(
@@ -87,7 +85,6 @@ def sharded_fenrir_fused_batch(thetas, ode_weight, ode_inits,
                                obs_data, obs_times, obs_weight, obs_var,
                                ode_flat, jac_flat=None,
                                mesh=None, axis_name="batch",
-                               chunk=None, interpret="auto",
                                kalman_type="standard"):
     r"""
     :func:`rodeo_tpu.ops.pallas_fenrir.fenrir_fused_batch` with the lane
@@ -105,7 +102,6 @@ def sharded_fenrir_fused_batch(thetas, ode_weight, ode_inits,
             prior_pars=prior_pars,
             obs_data=yobs, obs_times=obs_times, obs_weight=D, obs_var=Om,
             ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret,
             kalman_type=kalman_type)
 
     return _lane_sharded(local, mesh, axis_name, 1, 0)(
@@ -117,7 +113,6 @@ def sharded_dalton_fused_batch(thetas, ode_weight, ode_inits,
                                obs_data, obs_times, obs_weight, obs_var,
                                ode_flat, jac_flat=None,
                                mesh=None, axis_name="batch",
-                               chunk=None, interpret="auto",
                                kalman_type="standard"):
     r"""
     :func:`rodeo_tpu.ops.pallas_dalton.dalton_fused_batch` with the lane
@@ -135,7 +130,6 @@ def sharded_dalton_fused_batch(thetas, ode_weight, ode_inits,
             prior_pars=prior_pars,
             obs_data=yobs, obs_times=obs_times, obs_weight=D, obs_var=Om,
             ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret,
             kalman_type=kalman_type)
 
     return _lane_sharded(local, mesh, axis_name, 1, 0)(
@@ -147,7 +141,6 @@ def sharded_daltonng_fused_batch(thetas, ode_weight, ode_inits,
                                  obs_data, obs_times, obs_comp_flat,
                                  obs_dims, ode_flat, jac_flat=None,
                                  mesh=None, axis_name="batch",
-                                 chunk=None, interpret="auto",
                                  kalman_type="standard"):
     r"""
     :func:`rodeo_tpu.ops.pallas_daltonng.daltonng_fused_batch` with the
@@ -166,7 +159,6 @@ def sharded_daltonng_fused_batch(thetas, ode_weight, ode_inits,
             obs_data=yobs, obs_times=obs_times,
             obs_comp_flat=obs_comp_flat, obs_dims=obs_dims,
             ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret,
             kalman_type=kalman_type)
 
     return _lane_sharded(local, mesh, axis_name, 1, 0)(
@@ -178,7 +170,6 @@ def sharded_basic_fused_batch(thetas, ode_weight, ode_inits,
                               obs_data, obs_times, obs_loglik,
                               ode_flat, jac_flat=None,
                               mesh=None, axis_name="batch",
-                              chunk=None, interpret="auto",
                               kalman_type="standard", **params):
     r"""
     :func:`rodeo_tpu.ops.pallas_kalman.basic_fused_batch` with the lane
@@ -196,7 +187,6 @@ def sharded_basic_fused_batch(thetas, ode_weight, ode_inits,
             prior_pars=prior_pars,
             obs_data=yobs, obs_times=obs_times, obs_loglik=obs_loglik,
             ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret,
             kalman_type=kalman_type, **params)
 
     def wrapped(thetas, ode_inits, *reps):
@@ -214,8 +204,7 @@ def sharded_fenrir_fused_batch_grad(thetas, ode_weight, ode_inits,
                                     t_min, t_max, n_steps, prior_pars,
                                     obs_data, obs_times, obs_weight,
                                     obs_var, ode_flat, jac_flat=None,
-                                    mesh=None, axis_name="batch",
-                                    chunk=None, interpret="auto"):
+                                    mesh=None, axis_name="batch"):
     r"""
     :func:`rodeo_tpu.ops.pallas_fenrir.fenrir_fused_batch_grad` with the
     lane axis sharded over a device mesh (gradient-MCMC / MAP fleets:
@@ -232,8 +221,7 @@ def sharded_fenrir_fused_batch_grad(thetas, ode_weight, ode_inits,
             t_min=t_min, t_max=t_max, n_steps=n_steps,
             prior_pars=prior_pars,
             obs_data=yobs, obs_times=obs_times, obs_weight=D, obs_var=Om,
-            ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret)
+            ode_flat=ode_flat, jac_flat=jac_flat)
 
     return shard_map(
         local, mesh=mesh,
@@ -247,8 +235,7 @@ def sharded_dalton_fused_batch_grad(thetas, ode_weight, ode_inits,
                                     t_min, t_max, n_steps, prior_pars,
                                     obs_data, obs_times, obs_weight,
                                     obs_var, ode_flat, jac_flat=None,
-                                    mesh=None, axis_name="batch",
-                                    chunk=None, interpret="auto"):
+                                    mesh=None, axis_name="batch"):
     r"""
     :func:`rodeo_tpu.ops.pallas_dalton.dalton_fused_batch_grad` with the
     lane axis sharded over a device mesh.  Returns ``(loglik (n_lane,),
@@ -264,8 +251,7 @@ def sharded_dalton_fused_batch_grad(thetas, ode_weight, ode_inits,
             t_min=t_min, t_max=t_max, n_steps=n_steps,
             prior_pars=prior_pars,
             obs_data=yobs, obs_times=obs_times, obs_weight=D, obs_var=Om,
-            ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret)
+            ode_flat=ode_flat, jac_flat=jac_flat)
 
     return shard_map(
         local, mesh=mesh,
@@ -279,8 +265,7 @@ def sharded_basic_fused_batch_grad(thetas, ode_weight, ode_inits,
                                    t_min, t_max, n_steps, prior_pars,
                                    obs_data, obs_times, obs_loglik,
                                    ode_flat, jac_flat=None,
-                                   mesh=None, axis_name="batch",
-                                   chunk=None, interpret="auto", **params):
+                                   mesh=None, axis_name="batch", **params):
     r"""
     :func:`rodeo_tpu.ops.pallas_kalman.basic_fused_batch_grad` with the
     lane axis sharded over a device mesh.  Returns ``(loglik (n_lane,),
@@ -297,8 +282,7 @@ def sharded_basic_fused_batch_grad(thetas, ode_weight, ode_inits,
             t_min=t_min, t_max=t_max, n_steps=n_steps,
             prior_pars=prior_pars,
             obs_data=yobs, obs_times=obs_times, obs_loglik=obs_loglik,
-            ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret, **params)
+            ode_flat=ode_flat, jac_flat=jac_flat, **params)
 
     return shard_map(
         local, mesh=mesh,
@@ -313,7 +297,6 @@ def sharded_solve_sim_fused_batch(key, thetas, ode_weight, ode_inits,
                                   t_min, t_max, n_steps, prior_pars,
                                   ode_flat, jac_flat=None,
                                   mesh=None, axis_name="batch",
-                                  chunk=None, interpret="auto",
                                   kalman_type="standard"):
     r"""
     :func:`rodeo_tpu.ops.pallas_sim.solve_sim_fused_batch` with the lane
@@ -332,7 +315,6 @@ def sharded_solve_sim_fused_batch(key, thetas, ode_weight, ode_inits,
             key=k, thetas=th, ode_weight=W, ode_inits=x0,
             t_min=t_min, t_max=t_max, n_steps=n_steps,
             prior_pars=prior_pars, ode_flat=ode_flat, jac_flat=jac_flat,
-            chunk=chunk, interpret=interpret,
             kalman_type=kalman_type)
 
     return _lane_sharded(local, mesh, axis_name, 1, 3)(
@@ -341,8 +323,7 @@ def sharded_solve_sim_fused_batch(key, thetas, ode_weight, ode_inits,
 
 def sharded_magi_fused_batch(ode_data_subsets, ode_expand, n_active,
                              prior_pars, dt, sig2_lanes=None,
-                             mesh=None, axis_name="batch",
-                             chunk=None, interpret="auto", **params):
+                             mesh=None, axis_name="batch", **params):
     r"""
     :func:`rodeo_tpu.ops.pallas_magi.magi_fused_batch` with the lane axis
     (candidate paths / MCMC chains over the subset state) sharded over a
@@ -355,7 +336,7 @@ def sharded_magi_fused_batch(ode_data_subsets, ode_expand, n_active,
     def local(subsets, sig2):
         return pm.magi_fused_batch(
             subsets, ode_expand, n_active, prior_pars, dt,
-            sig2_lanes=sig2, chunk=chunk, interpret=interpret, **params)
+            sig2_lanes=sig2, **params)
 
     if sig2_lanes is None:
         sig2_lanes = jnp.ones(ode_data_subsets.shape[0], jnp.float32)
@@ -368,8 +349,7 @@ def sharded_magi_fused_batch(ode_data_subsets, ode_expand, n_active,
 def sharded_magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active,
                                   prior_pars, dt, theta_lanes=None,
                                   sig2_lanes=None,
-                                  mesh=None, axis_name="batch",
-                                  chunk=None, interpret="auto", **params):
+                                  mesh=None, axis_name="batch", **params):
     r"""
     :func:`rodeo_tpu.ops.pallas_magi.magi_fused_batch_grad` with the lane
     axis sharded over a device mesh — gradient MAP/MALA fleets over the
@@ -388,7 +368,7 @@ def sharded_magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active,
         def local(subsets, sig2):
             return pm.magi_fused_batch_grad(
                 subsets, ode_expand, n_active, prior_pars, dt,
-                sig2_lanes=sig2, chunk=chunk, interpret=interpret,
+                sig2_lanes=sig2,
                 **params)
         return shard_map(
             local, mesh=mesh, in_specs=(P(axis_name), P(axis_name)),
@@ -398,8 +378,7 @@ def sharded_magi_fused_batch_grad(ode_data_subsets, ode_expand, n_active,
     def local(subsets, th, sig2):
         return pm.magi_fused_batch_grad(
             subsets, ode_expand, n_active, prior_pars, dt,
-            theta_lanes=th, sig2_lanes=sig2, chunk=chunk,
-            interpret=interpret, **params)
+            theta_lanes=th, sig2_lanes=sig2, **params)
     return shard_map(
         local, mesh=mesh,
         in_specs=(P(axis_name), P(axis_name), P(axis_name)),
@@ -413,8 +392,7 @@ def run_chains_fused_sharded(loglik_fn, init_positions, key, n_samples,
                              t_min, t_max, n_steps, prior_pars,
                              ode_flat, jac_flat=None,
                              position_to_init=None,
-                             mesh=None, axis_name="chain",
-                             chunk=None, interpret="auto"):
+                             mesh=None, axis_name="chain"):
     r"""
     :func:`rodeo_tpu.parallel.chains.run_chains_fused` with the chain axis
     sharded over a device mesh: every chip advances its chain group in
@@ -435,8 +413,7 @@ def run_chains_fused_sharded(loglik_fn, init_positions, key, n_samples,
             loglik_fn, init_pos, k, n_samples, rw_scale,
             ode_weight=W, ode_init=x0, t_min=t_min, t_max=t_max,
             n_steps=n_steps, prior_pars=prior_pars, ode_flat=ode_flat,
-            jac_flat=jac_flat, position_to_init=position_to_init,
-            chunk=chunk, interpret=interpret)
+            jac_flat=jac_flat, position_to_init=position_to_init)
 
     return shard_map(
         local, mesh=mesh,

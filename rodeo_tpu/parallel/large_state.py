@@ -9,7 +9,7 @@ arithmetic to shard: every covariance step is :math:`O(n^3)` matmuls on
 **trailing state axis sharded over the mesh** — each device owns a
 column slab of the covariance/gain matrices; GSPMD inserts the
 all-gathers for the contracted operand of each matmul, and those ride
-ICI.  The small :math:`(n_{\text{bmeas}}, n_{\text{bmeas}})` innovation
+NVLink.  The small :math:`(n_{\text{bmeas}}, n_{\text{bmeas}})` innovation
 Cholesky stays replicated (a distributed Cholesky would be latency-bound
 at these sizes).
 
@@ -17,7 +17,7 @@ This is genuine model parallelism — one solve over many chips — as
 opposed to the lane/chain data parallelism of
 :mod:`rodeo_tpu.parallel.fused` and the time-axis sharding of
 :mod:`rodeo_tpu.parallel.ptime_sharded`.  It pays once the per-device
-slab is MXU-sized, i.e. states of thousands of dimensions; below that
+slab is large, i.e. states of thousands of dimensions; below that
 the replicated single-chip path is faster.  Values are independent of
 the device count up to float reassociation in the collectives.
 """

@@ -3,7 +3,7 @@ Device-mesh helpers.
 
 The natural scale-out axes for this library are *embarrassingly parallel*:
 MCMC chains, parameter-sweep candidates, and independent ODE solves.  They
-shard over ICI as pure data parallelism — no collective traffic inside a
+shard over NVLink as pure data parallelism — no collective traffic inside a
 solve — so a 1-D mesh saturates multi-chip topologies (SURVEY.md §5).
 """
 import jax

@@ -10,7 +10,7 @@ chain is ONE fused value+gradient kernel pass over the whole lane batch.
 
 Dynamic trajectory lengths are the whole point of NUTS and the whole
 problem for lockstep SIMD execution: a data-dependent ``while`` per chain
-would serialize the lanes.  The TPU-native answer is the **iterative**
+would serialize the lanes.  The lockstep answer is the **iterative**
 tree-building algorithm (Phan & Pradhan 2019, *Iterative NUTS*; the same
 scheme numpyro uses to stay XLA-compilable), made lane-parallel:
 
@@ -346,7 +346,7 @@ def run_chains_nuts_fused(init_positions, key, n_samples, step_size,
                           prior_pars, obs_data, obs_times, obs_weight,
                           obs_var, ode_flat, jac_flat=None,
                           logprior_grad_fn=None, likelihood="fenrir",
-                          max_depth=6, chunk=None, interpret="auto"):
+                          max_depth=6):
     r"""
     Lockstep NUTS over the FENRIR (or DALTON) marginal likelihood: every
     leapfrog leaf of every chain is ONE tangent-augmented fused kernel
@@ -365,8 +365,7 @@ def run_chains_nuts_fused(init_positions, key, n_samples, step_size,
     logpost_grad_fn = _fused_theta_logpost_grad(
         likelihood, init_positions.shape[0], ode_weight, ode_init,
         t_min, t_max, n_steps, prior_pars, obs_data, obs_times,
-        obs_weight, obs_var, ode_flat, jac_flat, logprior_grad_fn,
-        chunk, interpret)
+        obs_weight, obs_var, ode_flat, jac_flat, logprior_grad_fn)
     runner = make_nuts_runner(logpost_grad_fn, init_positions.shape[0],
                               n_samples, step_size, max_depth=max_depth)
     return runner(init_positions, key)
@@ -375,8 +374,7 @@ def run_chains_nuts_fused(init_positions, key, n_samples, step_size,
 def run_chains_nuts_magi(init_subsets, key, n_samples, step_size,
                          ode_expand, n_active, prior_pars, dt,
                          theta_lanes=None, sig2_lanes=None,
-                         extra_grad_fn=None, max_depth=6, chunk=None,
-                         interpret="auto", **params):
+                         extra_grad_fn=None, max_depth=6, **params):
     r"""
     Lockstep NUTS over the MAGI **path posterior** — the position is the
     thousands-dimensional latent path subset ``U`` (optionally jointly
@@ -393,7 +391,7 @@ def run_chains_nuts_magi(init_subsets, key, n_samples, step_size,
     from rodeo_tpu.parallel.chains import _magi_logpost_grad
     logpost_grad_fn = _magi_logpost_grad(
         theta_lanes is not None, ode_expand, n_active, prior_pars, dt,
-        sig2_lanes, extra_grad_fn, chunk, interpret, params)
+        sig2_lanes, extra_grad_fn, params)
     position0 = (init_subsets if theta_lanes is None
                  else (init_subsets, theta_lanes))
     runner = make_nuts_runner(logpost_grad_fn, init_subsets.shape[0],

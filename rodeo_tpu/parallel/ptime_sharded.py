@@ -14,7 +14,7 @@ conditional-Gaussian element algebra of Särkkä & García-Fernández 2021:
 1. **local scan** — each chip runs ``jax.lax.associative_scan`` over its own
    contiguous time chunk (:math:`O(\log(N/P))` depth, zero communication);
 2. **chunk-total exchange** — each chip's *total* element (the combine of
-   its whole chunk) is ``all_gather``-ed over ICI: :math:`P` tiny
+   its whole chunk) is ``all_gather``-ed over NVLink: :math:`P` tiny
    :math:`(n_{block}, q, q)` tensors, one collective;
 3. **prefix fold + local fix-up** — every chip combines the gathered totals
    into its *exclusive* incoming prefix (a log-depth scan over :math:`P`
@@ -24,7 +24,8 @@ conditional-Gaussian element algebra of Särkkä & García-Fernández 2021:
 Total sequential depth :math:`O(\log(N/P) + \log P) = O(\log N)` with the
 :math:`N`-proportional work split :math:`P` ways, and exactly one
 ``all_gather`` of per-chip scalars-scale data per pass — the collective
-rides ICI, never DCN.  The same structure runs the smoother as a suffix
+rides NVLink between the cards of one host.  The same structure runs the
+smoother as a suffix
 scan (``reverse=True``).
 
 The combines are algebraically identical to the single-chip path, so
@@ -86,7 +87,7 @@ def _axis_exclusive(totals, identity, combine, axis_name, reverse=False):
     total elements.
 
     ``totals`` is this chip's total element (a tuple of arrays).  Gathers
-    all chips' totals (ONE ``all_gather`` of tiny tensors over ICI), scans
+    all chips' totals (ONE ``all_gather`` of tiny tensors over NVLink), scans
     them with ``combine`` (log-depth, replicated), shifts by one inserting
     ``identity`` at the open end, and returns this chip's entry.
     """
@@ -159,7 +160,7 @@ def sharded_parallel_filter(mean_init, var_init,
     Time-sharded exact parallel Kalman filter for an affine measurement
     model: :func:`rodeo_tpu.ops.ptime.parallel_filter` with the time axis
     split over a device mesh (local associative scans + one ``all_gather``
-    of per-chip total elements over ICI).
+    of per-chip total elements over NVLink).
 
     Args: as :func:`rodeo_tpu.ops.ptime.parallel_filter`, plus
 

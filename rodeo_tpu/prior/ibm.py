@@ -30,11 +30,12 @@ def ibm_state(dt, q, sigma):
 
     Parity: ``prior/ibm.py:37-62``.
 
-    ACCURACY NOTE (TPU): the combinatorial coefficients are exact Python
+    ACCURACY NOTE: the combinatorial coefficients are exact Python
     floats folded in at trace time, and the ``dt`` powers are built by
     iterated multiplication — never ``pow``/``gammaln`` device
-    transcendentals, whose few-ulp float32 approximations on TPU perturb
-    the prior by ~1e-4 relative and (on chaotic systems) blow the solve
+    transcendentals, whose few-ulp float32 approximations on a device can
+    perturb the prior by ~1e-4 relative and (on chaotic systems) blow the
+    solve
     accuracy from ~1e-3 to ~0.5 absolute (measured, Lorenz63 t<=4).
     Remains fully jittable in ``dt``.
 

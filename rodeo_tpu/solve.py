@@ -22,8 +22,8 @@ arrays ``(n_block, n_bstate, n_bstate)``, reducing per-step cost from
 Functional parity target: ``/root/reference/src/rodeo/solve.py``
 (``_solve_filter``, ``solve_sim``, ``solve_mv``).
 
-TPU-first design
-----------------
+Design
+------
 * The Kalman cells are batch polymorphic, so each scan step is a single fused
   batched op over all blocks — no per-step ``vmap`` dispatch.
 * The backward smoothing pass is *linear* given the stored filter outputs, so
@@ -32,7 +32,7 @@ TPU-first design
   ``lax.scan`` (see :mod:`rodeo_tpu.ops.ptime`).  Select with
   ``temporal="parallel"``; results agree up to floating-point reordering.
 * Posterior sampling supports a square-root (SVD-free) path which is much
-  faster on TPU than ``jax.random.multivariate_normal(method='svd')``.
+  faster than ``jax.random.multivariate_normal(method='svd')``.
 """
 import jax
 import jax.numpy as jnp
@@ -125,7 +125,7 @@ def _solve_filter(key, ode_fun, ode_weight, ode_init,
 
 def _sample_mvn(key, mean, cov, method):
     """Per-step posterior draw.  ``method='svd'`` matches the reference
-    (``solve.py:179``); ``method='eigh'`` is the TPU fast path — a single
+    (``solve.py:179``); ``method='eigh'`` is the fast path — a single
     symmetric eigendecomposition factor instead of the two-pass SVD, with
     eigenvalues clamped at zero for PSD safety."""
     if method == "eigh":
@@ -147,8 +147,8 @@ def solve_sim(key, ode_fun, ode_weight, ode_init,
 
     Same arguments as :func:`solve_mv`.  Parity: ``solve.py:125-205``
     including the key-split tree, so draws match the reference given the
-    same key (standard filter, default ``method="svd"``).  On TPU prefer
-    ``method="eigh"`` (same distribution, one factorization per step).
+    same key (standard filter, default ``method="svd"``).  On an accelerator
+    prefer ``method="eigh"`` (same distribution, one factorization per step).
 
     Returns:
         (ndarray(n_steps+1, n_block, n_bstate)): Sample solution path.
@@ -175,7 +175,7 @@ def solve_sim(key, ode_fun, ode_weight, ode_init,
         method)
 
     if method == "eigh" and kalman_type == "standard":
-        # TPU fast path: hoist everything sample-independent out of the
+        # fast path: hoist everything sample-independent out of the
         # sequential loop.  The backward conditionals
         # :math:`X_n | X_{n+1} ~ N(A_n X_{n+1} + b_n, C_n)` have
         # sample-independent parameters, so the gains (one batched
@@ -184,7 +184,7 @@ def solve_sim(key, ode_fun, ode_weight, ode_init,
         # :math:`\eta_n = C_n^{1/2} z_n` (same per-step subkeys as the
         # in-loop draws) all batch over time; the scan keeps only the
         # affine recursion :math:`x_n = A_n x_{n+1} + b_n + \eta_n` —
-        # the same decomposition as the fused Pallas sampler
+        # the same decomposition as the fused sampler
         # (:mod:`rodeo_tpu.ops.pallas_sim`), here at the XLA layer.
         A, b, C = kalman_funs.smooth_cond(
             mean_state_filt=mean_state_filt[1:n_steps],
@@ -314,7 +314,7 @@ def solve_mv(key, ode_fun, ode_weight, ode_init,
     }
 
     if kalman_type == "standard":
-        # TPU fast path: the smoothing gains depend only on the stored
+        # fast path: the smoothing gains depend only on the stored
         # forward moments, so the whole backward Markov kernel
         # (A_n, b_n, C_n) hoists out of the sequential loop as ONE
         # batched ``smooth_cond`` over the time axis (per-step matrix

@@ -6,15 +6,14 @@ the Kalman kernels and the inference layer.  Functional parity targets:
 ``/root/reference/src/rodeo/utils.py`` (``add_sqrt``, ``mvncond``,
 ``multivariate_normal_logpdf``, ``first_order_pad``, ``solve_var``).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 Every function here is *batch polymorphic*: matrix arguments may carry an
 arbitrary number of leading batch dimensions (e.g. the ``n_block`` axis of the
 block-diagonal solver state, or a chain axis for vmapped MCMC).  All matrix
 algebra is expressed with broadcasting ``@`` / ``einsum`` / batched
 ``qr``/``eigh`` so that a single XLA op covers the whole batch instead of a
-per-block ``vmap`` loop.  That keeps the ops large and fusable, which is what
-the MXU/VPU want.
+per-block ``vmap`` loop.  That keeps the ops large and fusable.
 """
 import jax
 import jax.numpy as jnp
@@ -72,10 +71,10 @@ def add_sqrt(sqrt_A, sqrt_B):
         # rotation only, so every L L' consumer agrees); forming the Gram
         # squares the condition number, which the Taylor-preconditioned
         # wrappers — the only fast_linalg users — keep at O(1).  Batched
-        # QR on TPU is an iterative routine ~15x the cost.
+        # QR is an iterative routine of many times the cost.
         from rodeo_tpu.ops.linalg import chol_small
-        # broadcast-sum Gram: tiny batched `@` lowers to padded
-        # dot_general on TPU; the elementwise form stays on the VPU
+        # broadcast-sum Gram: tiny batched `@` lowers to a padded
+        # dot_general; the elementwise form stays elementwise
         gram = (sqrt_A[..., :, None, :] * sqrt_A[..., None, :, :]
                 ).sum(-1) + \
                (sqrt_B[..., :, None, :] * sqrt_B[..., None, :, :]).sum(-1)
@@ -92,7 +91,7 @@ def solve_var(V, B):
     Batched over leading dimensions.  Parity: ``utils.py:105-119``.
     Under the :func:`rodeo_tpu.ops.linalg.fast_linalg` context (enabled by
     the Taylor-preconditioned solvers), tiny systems use closed forms and
-    large systems Cholesky + triangular solves instead of the TPU-hostile
+    large systems Cholesky + triangular solves instead of the general
     batched LU (see :func:`rodeo_tpu.ops.linalg.solve_psd`).
 
     .. note:: behavior change vs earlier revisions: ``V`` must be

@@ -129,7 +129,8 @@ def test_grad_mvn_logpdf_masked():
 
 
 def test_grad_precond_fenrir_f32(setup):
-    """The TPU-mode (f32, preconditioned) likelihood gradient is finite."""
+    """The accelerator-mode (f32, preconditioned) likelihood gradient is
+    finite."""
     _, _, obs = setup
     cfg32 = fitzhugh.setup(n_steps=40, t_max=2.0, dtype=jnp.float32)
     th32 = cfg32.pop("theta")

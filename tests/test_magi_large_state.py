@@ -91,7 +91,7 @@ def test_magi_bench_reference_constants(fixture128):
 
 
 def test_magi_f32_profile_tracks_f64(fixture128):
-    """The float32 preconditioned kappa-profile (what TPU runs) must track
+    """The float32 preconditioned kappa-profile (what an accelerator runs) must track
     the f64 profile: the relative-likelihood curve over a +-10% kappa range
     errs by <10% of the signal, and the gradient keeps sign and magnitude
     to ~10%."""

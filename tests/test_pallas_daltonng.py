@@ -1,5 +1,5 @@
 """
-Fused non-Gaussian DALTON (lane-batched, Pallas interpreter on CPU) must
+Fused non-Gaussian DALTON (lane-batched, scan driver on CPU) must
 match the float64 XLA `precond.daltonng` on component-independent
 observation models.
 

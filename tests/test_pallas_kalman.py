@@ -1,6 +1,6 @@
 """
-Fused Pallas kernel tests (run through the Pallas interpreter on CPU):
-solve_mv_fused must match the preconditioned covariance solver.
+Fused step-function tests (the scan driver on CPU): solve_mv_fused must
+match the preconditioned covariance solver.
 """
 import numpy as np
 import jax
@@ -80,7 +80,7 @@ def test_jvp_jac_matches_analytic():
 
 def test_fused_with_jvp_jacobian(lorenz_cfg):
     """solve_mv_fused with the generic jvp Jacobian matches the analytic
-    one (through the Pallas interpreter)."""
+    one."""
     cfg, theta = lorenz_cfg
     jac_auto = pallas_kalman.jvp_jac_flat(lorenz.lorenz_flat, 3, 3)
     mu_a, _ = pallas_kalman.solve_mv_fused(
@@ -96,7 +96,7 @@ def test_fused_with_jvp_jacobian(lorenz_cfg):
 @pytest.mark.parametrize("model_name", ["hes1", "seirah"])
 def test_fused_other_models(model_name):
     """Fused solver (jvp Jacobian) matches the preconditioned solver on the
-    remaining benchmark systems (through the Pallas interpreter)."""
+    remaining benchmark systems."""
     import importlib
     model = importlib.import_module(f"rodeo_tpu.models.{model_name}")
     cfg = model.setup(n_steps=40, t_max=model.setup()["t_max"] / 4,
@@ -113,35 +113,6 @@ def test_fused_other_models(model_name):
     assert not bool(jnp.any(jnp.isnan(mu_f)))
     m, mr = np.asarray(mu_f[:, :, 0]), np.asarray(mu_ref[:, :, 0])
     np.testing.assert_allclose(m, mr, rtol=2e-2, atol=2e-2 * np.abs(mr).max())
-
-
-def test_fused_smoother_composed(lorenz_cfg):
-    """k-step composed smoother == plain fused smoother up to f32
-    reassociation (the composition is exact in exact arithmetic)."""
-    cfg, theta = lorenz_cfg
-    kw = dict(key=None, interrogate=None, theta=theta,
-              ode_flat=lorenz.lorenz_flat, jac_flat=lorenz.lorenz_jac_flat,
-              **cfg)
-    mu0, var0 = pallas_kalman.solve_mv_fused(**kw)
-    scale = float(jnp.max(jnp.abs(var0))) + 1e-30
-    for k in (4, 8):
-        mu, var = pallas_kalman.solve_mv_fused(k_compose=k, **kw)
-        np.testing.assert_allclose(np.asarray(mu), np.asarray(mu0),
-                                   rtol=5e-2, atol=5e-2)
-        np.testing.assert_allclose(np.asarray(var) / scale,
-                                   np.asarray(var0) / scale, atol=1e-4)
-
-
-def test_fused_filter_unroll_matches(lorenz_cfg):
-    """unroll=True (fully unrolled small-chunk filter loop) == default."""
-    cfg, theta = lorenz_cfg
-    kw = dict(key=None, interrogate=None, theta=theta,
-              ode_flat=lorenz.lorenz_flat, jac_flat=lorenz.lorenz_jac_flat,
-              **cfg)
-    mu0, _ = pallas_kalman.solve_mv_fused(**kw)
-    mu1, _ = pallas_kalman.solve_mv_fused(unroll=True, **kw)
-    np.testing.assert_allclose(np.asarray(mu1), np.asarray(mu0),
-                               rtol=5e-2, atol=5e-2)
 
 
 def test_sym_inv_q45():
@@ -253,7 +224,7 @@ def test_fused_batch_chkrebtii_mode():
 
 
 def test_fenrir_fused_matches_xla():
-    """Fused fenrir likelihood == XLA fenrir (f32, Pallas interpreter)."""
+    """Fused fenrir likelihood == XLA fenrir (f32)."""
     import importlib
     from rodeo_tpu.ops import pallas_fenrir
     fen = importlib.import_module("rodeo_tpu.inference.fenrir")
@@ -327,7 +298,7 @@ def test_solve_mv_fused_batch_matches_single(lorenz_cfg):
 
 
 def test_fenrir_fused_batch_matches_single():
-    """Lane-batched fenrir == per-lane fenrir_fused (interpreter)."""
+    """Lane-batched fenrir == per-lane fenrir_fused."""
     from rodeo_tpu.ops import pallas_fenrir
     cfg = lorenz.setup(n_steps=200, t_max=2.0, dtype=jnp.float32)
     theta = cfg.pop("theta")
@@ -357,7 +328,7 @@ def test_fenrir_fused_batch_matches_single():
 
 
 def test_dalton_fused_batch_matches_xla():
-    """Lane-batched fused DALTON == XLA dalton (f32, interpreter)."""
+    """Lane-batched fused DALTON == XLA dalton (f32)."""
     from rodeo_tpu.ops import pallas_dalton, precond
     cfg = lorenz.setup(n_steps=200, t_max=2.0, dtype=jnp.float32)
     theta = cfg.pop("theta")
@@ -386,22 +357,6 @@ def test_dalton_fused_batch_matches_xla():
         # so cross-implementation agreement is limited to ~1e-2 relative
         # (f64 parity vs the reference is covered at 1e-7 elsewhere)
         np.testing.assert_allclose(float(lls[i]), float(ll_i), rtol=2e-2)
-
-
-def test_nondividing_chunk_rejected():
-    """A user-supplied chunk that does not divide n_steps must raise, not
-    silently drop trailing steps (which produced NaNs downstream)."""
-    import pytest as _pytest
-    from rodeo_tpu.models import fitzhugh
-    from rodeo_tpu.ops import pallas_kalman
-    from rodeo_tpu.interrogate import interrogate_kramer
-    cfg = fitzhugh.setup(n_steps=100, t_max=5.0, dtype=jnp.float32)
-    th = cfg.pop("theta")
-    with _pytest.raises(ValueError, match="divide"):
-        pallas_kalman.solve_mv_fused(
-            key=None, interrogate=interrogate_kramer, theta=th,
-            ode_flat=fitzhugh.fitzhugh_flat,
-            jac_flat=fitzhugh.fitzhugh_jac_flat, chunk=32, **cfg)
 
 
 def test_fused_interrogation_contract(lorenz_cfg):
@@ -478,7 +433,7 @@ def test_fused_schober_matches_precond(lorenz_cfg):
 
 
 def test_basic_fused_batch_matches_xla():
-    """Lane-batched fused Basic likelihood == XLA basic (f32, interp)."""
+    """Lane-batched fused Basic likelihood == XLA basic (f32)."""
     cfg = lorenz.setup(n_steps=200, t_max=2.0, dtype=jnp.float32)
     theta = cfg.pop("theta")
     rng = np.random.default_rng(3)

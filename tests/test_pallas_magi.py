@@ -1,5 +1,5 @@
 """
-Fused MAGI (lane-batched, Pallas interpreter on CPU) must match the
+Fused MAGI (lane-batched, scan driver on CPU) must match the
 float64 XLA `precond.magi_logdens` per lane.
 
 The MAGI filter conditions on *exact* pseudo-observations, so the active

@@ -1,6 +1,6 @@
 """
-Fused lane-batched posterior sampling + fused MCMC tests (run through the
-Pallas interpreter on CPU).
+Fused lane-batched posterior sampling + fused MCMC tests (the scan
+driver on CPU).
 
 The sampler is stochastic, so correctness is checked distributionally: the
 lane-marginal law of solve_sim draws equals the smoothing posterior

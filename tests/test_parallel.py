@@ -86,7 +86,7 @@ def test_sharded_loglik_matches_sequential(fitz):
 
 
 def test_chain_checkpoint_roundtrip(tmp_path, fitz):
-    """MCMC state save/load (TPU-native persistence extension)."""
+    """MCMC state save/load (persistence extension)."""
     def logpost(theta, key):
         return -0.5 * jnp.sum(theta ** 2), theta * 2
     alg = pm.normal_random_walk(logpost, 0.1 * jnp.ones(3))

@@ -1,6 +1,6 @@
 """
-Multi-chip sharding of the fused lane-batched kernels (8 virtual CPU
-devices via conftest; Pallas kernels run through the interpreter).
+Multi-chip sharding of the fused lane-batched solvers (8 virtual CPU
+devices via conftest; the fused step functions run on the scan driver).
 """
 import numpy as np
 import jax
@@ -157,7 +157,7 @@ def test_chain_runner_runtime_scale():
 
 def test_sharded_dalton_daltonng_basic(mesh):
     """Sharded dalton/daltonng/basic fused wrappers == single-mesh calls
-    (8 virtual devices, Pallas interpreter)."""
+    (8 virtual devices)."""
     from rodeo_tpu.parallel import (
         sharded_dalton_fused_batch, sharded_daltonng_fused_batch,
         sharded_basic_fused_batch)
@@ -219,7 +219,7 @@ def test_sharded_dalton_daltonng_basic(mesh):
 
 def test_sharded_grad_wrappers(mesh):
     """Sharded fenrir/dalton/basic GRADIENT wrappers == single-mesh calls
-    (8 virtual devices, Pallas interpreter)."""
+    (8 virtual devices)."""
     from rodeo_tpu.parallel import (
         sharded_fenrir_fused_batch_grad, sharded_dalton_fused_batch_grad,
         sharded_basic_fused_batch_grad)
@@ -604,7 +604,7 @@ def test_magi_sig2_quadform_exact():
     def ld_at(mult):
         return magi_fused_batch(subsets, ode_expand, 2,
                                 cfg["prior_pars"], dt,
-                                sig2_lanes=mult, interpret=True)
+                                sig2_lanes=mult)
 
     ld_s, ld_2s = ld_at(s), ld_at(2.0 * s)
     q, d_dim = magi_sig2_quadform(ld_s, ld_2s, s, 32, n_block, 2)

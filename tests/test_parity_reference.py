@@ -31,12 +31,12 @@ ref_dalton_mod = importlib.import_module("rodeo.inference.dalton")
 ref_magi_mod = importlib.import_module("rodeo.inference.magi")
 
 import rodeo_tpu  # noqa: E402
-import rodeo_tpu.interrogate as tpu_interrogate  # noqa: E402
+import rodeo_tpu.interrogate as rt_interrogate  # noqa: E402
 from rodeo_tpu.prior import ibm_init  # noqa: E402
 
-tpu_fenrir_mod = importlib.import_module("rodeo_tpu.inference.fenrir")
-tpu_dalton_mod = importlib.import_module("rodeo_tpu.inference.dalton")
-tpu_magi_mod = importlib.import_module("rodeo_tpu.inference.magi")
+rt_fenrir_mod = importlib.import_module("rodeo_tpu.inference.fenrir")
+rt_dalton_mod = importlib.import_module("rodeo_tpu.inference.dalton")
+rt_magi_mod = importlib.import_module("rodeo_tpu.inference.magi")
 
 from problems import fitz_fun, fitz_setup
 
@@ -65,7 +65,7 @@ def test_ibm_init_parity():
 
 @pytest.mark.parametrize("name", ["rodeo", "schober", "kramer"])
 def test_solve_mv_parity(fitz, name):
-    ours_i = getattr(tpu_interrogate, f"interrogate_{name}")
+    ours_i = getattr(rt_interrogate, f"interrogate_{name}")
     ref_i = getattr(ref_interrogate, f"interrogate_{name}")
     mu, var = rodeo_tpu.solve_mv(**_solve_kwargs(fitz, ours_i))
     mu_r, var_r = ref_rodeo.solve_mv(**_solve_kwargs(fitz, ref_i))
@@ -76,7 +76,7 @@ def test_solve_mv_parity(fitz, name):
 def test_solve_mv_chkrebtii_parity(fitz):
     """Same key => bit-compatible stochastic interrogation draws."""
     from functools import partial
-    ours_i = partial(tpu_interrogate.interrogate_chkrebtii,
+    ours_i = partial(rt_interrogate.interrogate_chkrebtii,
                      kalman_type="standard")
     ref_i = partial(ref_interrogate.interrogate_chkrebtii,
                     kalman_type="standard")
@@ -87,7 +87,7 @@ def test_solve_mv_chkrebtii_parity(fitz):
 
 def test_solve_sim_parity(fitz):
     xs = rodeo_tpu.solve_sim(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_rodeo))
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_rodeo))
     xs_r = ref_rodeo.solve_sim(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_rodeo))
     np.testing.assert_allclose(xs, xs_r, rtol=1e-7, atol=1e-9)
@@ -114,14 +114,14 @@ def test_fenrir_parity(fitz):
     obs_data, obs_times, obs_weight, obs_var = _obs_setup(fitz, rng)
     kw = dict(obs_data=obs_data, obs_times=obs_times,
               obs_weight=obs_weight, obs_var=obs_var)
-    ll = tpu_fenrir_mod.fenrir(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    ll = rt_fenrir_mod.fenrir(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     ll_r = ref_fenrir_mod.fenrir(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
     np.testing.assert_allclose(ll, ll_r, rtol=1e-8)
 
-    mu, var = tpu_fenrir_mod.solve_mv(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    mu, var = rt_fenrir_mod.solve_mv(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     mu_r, var_r = ref_fenrir_mod.solve_mv(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
     np.testing.assert_allclose(mu, mu_r, rtol=1e-8, atol=1e-10)
@@ -133,21 +133,21 @@ def test_dalton_parity(fitz):
     obs_data, obs_times, obs_weight, obs_var = _obs_setup(fitz, rng)
     kw = dict(obs_data=obs_data, obs_times=obs_times,
               obs_weight=obs_weight, obs_var=obs_var)
-    ll = tpu_dalton_mod.dalton(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    ll = rt_dalton_mod.dalton(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     ll_r = ref_dalton_mod.dalton(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
     np.testing.assert_allclose(ll, ll_r, rtol=1e-8)
 
-    mu, var = tpu_dalton_mod.solve_mv(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    mu, var = rt_dalton_mod.solve_mv(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     mu_r, var_r = ref_dalton_mod.solve_mv(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
     np.testing.assert_allclose(mu, mu_r, rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(var, var_r, rtol=1e-7, atol=1e-10)
 
-    xs = tpu_dalton_mod.solve_sim(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    xs = rt_dalton_mod.solve_sim(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     xs_r = ref_dalton_mod.solve_sim(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
     np.testing.assert_allclose(xs, xs_r, rtol=1e-7, atol=1e-9)
@@ -174,15 +174,15 @@ def test_daltonng_parity(fitz):
 
     kw = dict(obs_data=obs_data, obs_times=obs_times,
               obs_loglik_i=obs_loglik_i)
-    ll = tpu_dalton_mod.daltonng(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    ll = rt_dalton_mod.daltonng(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     ll_r = ref_dalton_mod.daltonng(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
     assert np.isfinite(float(ll_r)), "reference NaN: fixture invalid"
     np.testing.assert_allclose(ll, ll_r, rtol=1e-7, equal_nan=False)
 
-    mu, var = tpu_dalton_mod.solve_mv_nn(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    mu, var = rt_dalton_mod.solve_mv_nn(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     mu_r, var_r = ref_dalton_mod.solve_mv_nn(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
     assert np.all(np.isfinite(np.asarray(mu_r)))
@@ -205,8 +205,8 @@ def test_daltonng_partial_obs_finite(fitz):
 
     kw = dict(obs_data=obs_data, obs_times=obs_times,
               obs_loglik_i=obs_loglik_i)
-    ll = tpu_dalton_mod.daltonng(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_kramer), **kw)
+    ll = rt_dalton_mod.daltonng(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_kramer), **kw)
     assert np.isfinite(float(ll)), "daltonng not finite on partial obs"
     ll_r = ref_dalton_mod.daltonng(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_kramer), **kw)
@@ -234,7 +234,7 @@ def test_magi_parity(fitz):
         pad = jnp.zeros(u.shape[:-1] + (1,))
         return jnp.concatenate([u, pad], axis=-1)
 
-    ll = tpu_magi_mod.magi_logdens(
+    ll = rt_magi_mod.magi_logdens(
         ode_data_subset=U, ode_expand=ode_expand, n_active=2,
         prior_pars=prior_pars, kalman_type="standard")
     ll_r = ref_magi_mod.magi_logdens(
@@ -245,7 +245,7 @@ def test_magi_parity(fitz):
 
 def test_basic_parity(fitz):
     ref_basic_mod = importlib.import_module("rodeo.inference.basic")
-    tpu_basic_mod = importlib.import_module("rodeo_tpu.inference.basic")
+    rt_basic_mod = importlib.import_module("rodeo_tpu.inference.basic")
     rng = np.random.default_rng(11)
     obs_data, obs_times, _, _ = _obs_setup(fitz, rng)
 
@@ -254,8 +254,8 @@ def test_basic_parity(fitz):
             -0.5 * (obs_data[..., 0] - ode_data[..., 0]) ** 2 / 0.01)
 
     kw = dict(obs_data=obs_data, obs_times=obs_times, obs_loglik=obs_loglik)
-    ll, Xt = tpu_basic_mod.basic(
-        **_solve_kwargs(fitz, tpu_interrogate.interrogate_rodeo), **kw)
+    ll, Xt = rt_basic_mod.basic(
+        **_solve_kwargs(fitz, rt_interrogate.interrogate_rodeo), **kw)
     ll_r, Xt_r = ref_basic_mod.basic(
         **_solve_kwargs(fitz, ref_interrogate.interrogate_rodeo), **kw)
     np.testing.assert_allclose(ll, ll_r, rtol=1e-8)

@@ -281,7 +281,7 @@ def test_magi_parallel_matches_sequential():
 
 
 def test_precond_inference_f32_finite():
-    """f32 TPU-path coverage: daltonng / magi / basic stay finite on the
+    """f32 accelerator-path coverage: daltonng / magi / basic stay finite on the
     4k-step Lorenz grid where the unconditioned prior NaNs (VERDICT r1 #4)."""
     from rodeo_tpu.models import lorenz
     from rodeo_tpu.prior import ibm_init

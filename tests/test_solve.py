@@ -193,7 +193,7 @@ def test_solve_sim_shape_and_determinism(fitz):
 
 
 def test_solve_sim_eigh_method(fitz):
-    """TPU fast sampling path: same distribution (tight prior => draws hug
+    """Fast sampling path: same distribution (tight prior => draws hug
     the same posterior mean), jittable."""
     kwargs = dict(
         key=fitz["key"], ode_fun=fitz_fun, ode_weight=fitz["W"],

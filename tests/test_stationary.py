@@ -150,8 +150,8 @@ def test_stationary_validate_probe():
 
 def test_stationary_nonlinear_poisons_device_side():
     """VERDICT r4 #4: the affine-contract probe must be loud ON DEVICE,
-    not only via a host callback (remote TPU runtimes reject host
-    callbacks, where the old check silently did nothing).  Under jit the
+    not only via a host callback (a runtime that drops host callbacks
+    would leave the violation silent).  Under jit the
     probe residual is traced and the guard is a pure in-graph where-gate:
     a nonlinear RHS must come back NaN-poisoned, the affine model must
     come back finite and unchanged."""

@@ -12,7 +12,7 @@ DOCS = pathlib.Path(__file__).resolve().parent.parent / "docs"
 
 
 @pytest.mark.parametrize("name", ["tutorial", "higher_order", "lorenz",
-                                  "parameter", "tpu_performance"])
+                                  "parameter"])
 def test_tutorial_executes(name):
     out = subprocess.run(
         [sys.executable, str(DOCS / "run_tutorials.py"), name],

@@ -3,7 +3,7 @@ One-off f32-on-CPU control measurement for the large-state inference
 bench rows (VERDICT r4 #3: every *_grad_rel_err row needs an f32-CPU
 control sibling).
 
-Runs the SAME f32 pipelines the TPU bench rows run, on CPU, and prints a
+Runs the SAME f32 pipelines the device bench rows run, on CPU, and prints a
 JSON dict of control values + rel errors vs the cached f64 exact-mode
 references (bench.py _LF_REF_* / _LD_REF_*, 2026-08-19/20 720 s runs).
 The printed numbers are pasted into bench.py _LS_F32CPU_CONTROLS as

@@ -3,7 +3,7 @@ Run the UPSTREAM reference's own unittest suite (`/root/reference/tests`)
 against THIS package, by aliasing the ``rodeo`` import namespace to
 ``rodeo_tpu``.  Passing means upstream's tests — closed-form Gauss-Markov
 oracles, naive-loop equivalence, jit/grad consistency, scipy smoke tests
-(SURVEY §4) — all hold verbatim for the TPU rebuild.
+(SURVEY §4) — all hold verbatim for the accelerator rebuild.
 
 Run: python tools/run_reference_tests.py
 """
